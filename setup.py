@@ -31,6 +31,9 @@ setup(
         "oatomobile_tpu.benchmarks.carnovel": ["configs/*.json"],
         "oatomobile_tpu.benchmarks.corl2017": ["configs/*.json"],
         "oatomobile_tpu.native": ["*.cc"],
+        "oatomobile_torch": ["csrc/*.cu", "csrc/*.cuh"],
+        "oatomobile_torch.maps": ["benchmark_tasks.json"],
+        "oatomobile_torch.native": ["*.cc"],
     },
     python_requires=">=3.10",
     install_requires=[
