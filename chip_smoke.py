@@ -1,31 +1,46 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``oatomobile_torch``).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--prev-splat PATH ...]
 
 Needs one CUDA card and the CUDA toolkit (nvcc).  It:
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds every kernel of the main path from the sources in this
-     checkout (the BEV splat, csrc/bev_splat.cu) and prints the build time
-     and what ptxas reports;
-  3. holds each kernel against its plain PyTorch version on the card, on
+     checkout (the BEV splat, csrc/bev_splat.cu) and prints the build time,
+     what ptxas reports and the loops of the kernel's SASS (cuobjdump);
+  3. holds each kernel against its plain PyTorch version on the card: on
      the inputs the main path gives it (Town01, 16 NPCs, after 20 autopilot
-     steps) at 64 and 1024 scenes;
-  4. runs a small rollout on the card and on the CPU and holds the episode
+     steps) and on inputs that stress its culling
+     (``bev_cuda.stress_inputs``), at 64 and 1024 scenes; no pixel may
+     differ;
+  4. captures one splat in a CUDA graph, replays it on new inputs copied
+     into the captured buffers and holds the result against the eager call;
+  5. runs a small rollout on the card and on the CPU and holds the episode
      stats against each other;
-  5. drives the main path: ``BatchedEnv("Town01", 1024, num_vehicles=16,
+  6. drives the main path: ``BatchedEnv("Town01", 1024, num_vehicles=16,
      route_capacity=1024, seed=0).rollout(256, compute=("lidar",))`` once
      to warm up and once timed, with every kernel's launch count set to 0
      just before the timed run and read just after;
-  6. times each kernel (CUDA events around back-to-back calls, median
-     of 21 runs) beside its plain version and its bound;
-  7. prints one JSON line of the kernels and, last, the ok/device line.
+  7. times each kernel (CUDA events around back-to-back calls, median
+     of 21 runs) beside its plain version and its bound, and a fill of a
+     tensor the size of the splat's output (what the card's memory gives a
+     write of those bytes);
+  8. prints one JSON line of the kernels and, last, the ok/device line.
+
+``--prev-splat PATH`` (may be given more than once) names another design
+of the splat, a bev_splat.cu with the same C entry point
+``bev_splat_launch``: it is built the same way, checked against the plain
+version on the main path's inputs, and timed in turn with this one (old,
+new, new, old) at the main path's final inputs; the first one's time is
+the kernels line's ``prev_ms``.
 
 Any failure exits non-zero before the last line.  Without a CUDA device,
 or outside a checkout of the repository, it exits 1 and prints no result.
 """
 
+import argparse
+import ctypes
 import json
 import os
 import statistics
@@ -46,11 +61,9 @@ PEAK_FP32_PER_S = 67e12
 # products and two sums each, then two compares (|x| <= h, the abs being
 # an operand modifier).
 OPS_PER_TEST = 10
-# Kernel against plain version: pixels allowed to differ.  The kernel
-# rounds every product and sum as the plain version does (no FMA), so the
-# expected difference is none; a pixel whose centre lies within rounding
-# of a rect edge is the only way one could differ.
-EDGE_FRACTION = 1e-4
+# Kernel against plain version: no pixel may differ.  The kernel rounds
+# every product and sum as the plain version does (no FMA), and its
+# culling boxes are conservative, so the two are equal bit for bit.
 
 
 def fail(message: str) -> None:
@@ -103,7 +116,61 @@ def splat_bound_ms(hero, walls, roads, boxes):
                                  else "operations"), live_slots / B
 
 
+def prev_splat(source: str, bev_cuda):
+  """(name, library, launcher) of another design of the splat kernel built
+  from ``source``, the launcher called like ``splat_lidar_batch``."""
+  import torch  # pylint: disable=import-outside-toplevel
+  name = os.path.splitext(os.path.basename(source))[0]
+  library = os.path.join(os.path.dirname(bev_cuda.LIBRARY),
+                         "libprev_{}.so".format(name))
+  lib = ctypes.CDLL(bev_cuda.build(source, library))
+  ptr, i32 = ctypes.c_void_p, ctypes.c_int
+  lib.bev_splat_launch.argtypes = [ptr, ptr, i32, ptr, i32, ptr, i32, ptr,
+                                   ptr, ptr, ptr, i32, ptr]
+  lib.bev_splat_launch.restype = i32
+
+  def launch(hero, walls, roads, boxes):
+    centers, counts, ground = bev_cuda._tables(hero.device)  # pylint: disable=protected-access
+    out = torch.empty((hero.shape[0], 200, 200, 2), dtype=torch.float32,
+                      device=hero.device)
+    err = lib.bev_splat_launch(
+        hero.data_ptr(), walls.data_ptr(), walls.shape[1], roads.data_ptr(),
+        roads.shape[1], boxes.data_ptr(), boxes.shape[1], centers.data_ptr(),
+        counts.data_ptr(), ground.data_ptr(), out.data_ptr(), hero.shape[0],
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+      fail("{} failed to launch: CUDA error {}".format(source, err))
+    return out
+
+  return name, library, launch
+
+
+def print_build(name: str, bev_cuda, library: str) -> None:
+  """What ptxas said in the last build, and the loops of the SASS."""
+  from oatomobile_torch import sass  # pylint: disable=import-outside-toplevel
+  for line in bev_cuda.build_log.splitlines():
+    if "registers" in line or "bytes stack" in line:
+      print("ptxas {}: {}".format(name, line.strip()))
+  try:
+    lines = sass.report(library)
+  except (RuntimeError, OSError, subprocess.CalledProcessError) as exc:
+    lines = ["sass: not available ({})".format(exc)]
+  for line in lines:
+    print("{} {}".format(name, line))
+
+
+def count_differing(out, ref) -> int:
+  """Pixels of [B, 200, 200, 2] images where either channel differs (NaN
+  differs from everything)."""
+  return int((out != ref).any(-1).sum())
+
+
 def main() -> None:
+  parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+  parser.add_argument("--prev-splat", action="append", default=[],
+                      help="another design's bev_splat.cu to check and time "
+                      "beside this one")
+  args = parser.parse_args()
   try:
     import torch  # pylint: disable=import-outside-toplevel
   except ImportError:
@@ -130,9 +197,14 @@ def main() -> None:
   bev_cuda.build()
   print("build: bev_splat {:.1f}s (nvcc {:.1f}s)".format(
       time.perf_counter() - t0, bev_cuda.build_seconds))
-  for line in bev_cuda.build_log.splitlines():
-    if "registers" in line or "bytes stack" in line:
-      print("ptxas: " + line.strip())
+  print_build("bev_splat", bev_cuda, bev_cuda.LIBRARY)
+  prevs = {}
+  for source in args.prev_splat:
+    name, library, launch = prev_splat(source, bev_cuda)
+    prevs[name] = launch
+    print("build: {} from {} (nvcc {:.1f}s)".format(name, source,
+                                                   bev_cuda.build_seconds))
+    print_build(name, bev_cuda, library)
 
   # -- 2. Kernel against its plain version on the card -----------------------
   max_abs_err = 0.0
@@ -140,23 +212,51 @@ def main() -> None:
     env = BatchedEnv(TOWN, batch, num_vehicles=VEHICLES, route_capacity=1024,
                      seed=0, device="cuda")
     env.rollout(20, compute=())
-    inputs = bev.gather_inputs(env.params, env.state)
-    out = bev_cuda.splat_lidar_batch(*inputs)
-    ref = bev_cuda.splat_lidar_batch_reference(*inputs)
-    torch.cuda.synchronize()
-    diff = (out - ref).abs()
-    err = float(diff.max())
-    frac = float((diff > 0).float().mean())
-    occupied = float((out[..., 1] > 0).float().mean())
-    print("check bev_splat B={}: max_abs_diff={} differing_fraction={} "
-          "occupied_fraction={:.4f}".format(batch, err, frac, occupied))
-    if not torch.isfinite(out).all() or frac >= EDGE_FRACTION:
-      fail("bev_splat disagrees with its plain version at B={}".format(
-          batch))
-    max_abs_err = max(max_abs_err, err)
-    del env, inputs, out, ref, diff
+    cases = {"main": bev.gather_inputs(env.params, env.state),
+             "stress": bev_cuda.stress_inputs(batch, batch, "cuda")}
+    for case, inputs in cases.items():
+      ref = bev_cuda.splat_lidar_batch_reference(*inputs)
+      out = bev_cuda.splat_lidar_batch(*inputs)
+      torch.cuda.synchronize()
+      differing = count_differing(out, ref)
+      err = float((out - ref).abs().max())
+      print("check bev_splat {} B={}: max_abs_diff={} differing_pixels={} "
+            "occupied_fraction={:.4f}".format(
+                case, batch, err, differing,
+                float((ref[..., 1] > 0).float().mean())))
+      if differing:
+        fail("bev_splat disagrees with its plain version on the {} inputs "
+             "at B={}".format(case, batch))
+      max_abs_err = max(max_abs_err, err)
+      for name, launch in prevs.items():
+        if case == "main":
+          print("check {} {} B={}: differing_pixels={}".format(
+              name, case, batch, count_differing(launch(*inputs), ref)))
+    del env, cases, inputs, out, ref
 
-  # -- 3. A small rollout on the card against the CPU ------------------------
+  # -- 3. One splat captured in a CUDA graph, replayed on new inputs ---------
+  static = [x.clone() for x in bev_cuda.stress_inputs(64, 1, "cuda")]
+  bev_cuda.splat_lidar_batch(*static)
+  torch.cuda.synchronize()
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    captured = bev_cuda.splat_lidar_batch(*static)
+  fresh = bev_cuda.stress_inputs(64, 2, "cuda")
+  for dst, src in zip(static, fresh):
+    dst.copy_(src)
+  graph.replay()
+  eager = bev_cuda.splat_lidar_batch(*fresh)
+  torch.cuda.synchronize()
+  differing = count_differing(captured, eager)
+  print("check bev_splat graph replay on new inputs: differing_pixels={} "
+        "(against the plain version: {})".format(
+            differing, count_differing(
+                captured, bev_cuda.splat_lidar_batch_reference(*fresh))))
+  if differing:
+    fail("the graph-captured splat disagrees with the eager call")
+  del graph, captured, eager, static, fresh
+
+  # -- 4. A small rollout on the card against the CPU ------------------------
   stats = {}
   for device in ("cpu", "cuda"):
     env = BatchedEnv("Town02", 4, num_vehicles=8, seed=4, device=device)
@@ -175,7 +275,7 @@ def main() -> None:
   if not same or dist_err > 1e-3 or sum_err > 1e-3:
     fail("the rollout on the card disagrees with the rollout on the CPU")
 
-  # -- 4. Main path ------------------------------------------------------------
+  # -- 5. Main path ------------------------------------------------------------
   env = BatchedEnv(TOWN, BATCH, num_vehicles=VEHICLES, route_capacity=1024,
                    seed=0, device="cuda")
   _, _, s = env.rollout(STEPS, compute=("lidar",))
@@ -202,15 +302,32 @@ def main() -> None:
   if not finite or not bool((s["obs_checksum"] != 0).all()):
     fail("main path stats are not finite or a checksum is zero")
 
-  # -- 5. Kernel timing at the main path's inputs ------------------------------
+  # -- 6. Kernel timing at the main path's inputs ------------------------------
   inputs = bev.gather_inputs(env.params, final)
-  ms = cuda_ms(lambda: bev_cuda.splat_lidar_batch(*inputs), calls=20)
+  designs = {"bev_splat": bev_cuda.splat_lidar_batch, **prevs}
+  order = [*prevs, "bev_splat", "bev_splat", *reversed(list(prevs))]
+  times = {name: [] for name in designs}
+  for name in order:
+    times[name].append(cuda_ms(lambda f=designs[name]: f(*inputs), calls=20))
+  ms_of = {name: statistics.mean(t) for name, t in times.items()}
+  ms = ms_of["bev_splat"]
   plain_ms = cuda_ms(lambda: bev_cuda.splat_lidar_batch_reference(*inputs),
                      calls=2)
   bound_ms, bound_by, slots = splat_bound_ms(*inputs)
+  # Yardstick of what the card's memory gives a write of the same bytes.
+  image = torch.empty((BATCH, 200, 200, 2), device="cuda")
+  fill_ms = cuda_ms(lambda: image.fill_(0.0), calls=20)
+  del image
+  step_ms = 1e3 * elapsed / STEPS
+  print("timing B={} in turn ({}): {}".format(
+      BATCH, ", ".join(order), "; ".join(
+          "{} {} ms".format(name, " ".join("{:.4f}".format(t) for t in ts))
+          for name, ts in times.items())))
   print("timing bev_splat B={}: kernel {:.4f} ms, plain {:.4f} ms, bound "
-        "{:.4f} ms ({}; {:.1f} live slots per scene), library none".format(
-            BATCH, ms, plain_ms, bound_ms, bound_by, slots))
+        "{:.4f} ms ({}; {:.1f} live slots per scene), a fill of the same "
+        "output {:.4f} ms, library none; {:.2%} of the main path's {:.3f} "
+        "ms step".format(BATCH, ms, plain_ms, bound_ms, bound_by, slots,
+                         fill_ms, ms / step_ms, step_ms))
 
   kernels = [{
       "name": "bev_splat",
@@ -225,6 +342,8 @@ def main() -> None:
       "bound_ms": bound_ms,
       "bound_by": bound_by,
       "library_ms": None,
+      "prev_ms": ms_of[next(iter(prevs))] if prevs else None,
+      "fill_ms": fill_ms,
   }]
   print("total: {:.1f}s".format(time.perf_counter() - t_start))
   print(json.dumps({"kernels": kernels}))

@@ -41,6 +41,48 @@ def test_bev_splat_kernel_matches_plain_version(card, town, vehicles,
   assert bev_cuda.launches == before + 1
   ref = bev_cuda.splat_lidar_batch_reference(*inputs)
   torch.cuda.synchronize()
-  # Same float32 roundings (no FMA in the kernel): expected equal; at most
-  # 1e-4 of pixels may sit within rounding of a rect edge.
-  assert float((out != ref).float().mean()) < 1e-4
+  # Same float32 roundings (no FMA in the kernel) and conservative culling
+  # boxes: equal bit for bit.
+  assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("batch", [64, 1024])
+def test_bev_splat_kernel_matches_plain_version_on_stress_inputs(card,
+                                                                 batch):
+  inputs = bev_cuda.stress_inputs(batch, 7 + batch, card)
+  out = bev_cuda.splat_lidar_batch(*inputs)
+  ref = bev_cuda.splat_lidar_batch_reference(*inputs)
+  torch.cuda.synchronize()
+  assert int((out != ref).any(-1).sum()) == 0
+  assert (ref[..., 1] > 0).any() and (ref[..., 0] > 0).any()
+
+
+def test_bev_splat_graph_replay_matches_eager_call(card):
+  static = [x.clone() for x in bev_cuda.stress_inputs(64, 1, card)]
+  bev_cuda.splat_lidar_batch(*static)
+  torch.cuda.synchronize()
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    captured = bev_cuda.splat_lidar_batch(*static)
+  fresh = bev_cuda.stress_inputs(64, 2, card)
+  for dst, src in zip(static, fresh):
+    dst.copy_(src)
+  graph.replay()
+  eager = bev_cuda.splat_lidar_batch(*fresh)
+  torch.cuda.synchronize()
+  assert torch.equal(captured, eager)
+  assert torch.equal(captured, bev_cuda.splat_lidar_batch_reference(*fresh))
+
+
+def test_bev_splat_kernel_refuses_a_misaligned_output(card):
+  """The C entry point checks what the bulk copies need."""
+  inputs = bev_cuda.stress_inputs(2, 0, card)
+  centers, counts, ground = bev_cuda._tables(card)  # pylint: disable=protected-access
+  out = torch.empty(2 * 200 * 200 * 2 + 1, device=card)[1:]
+  hero, walls, roads, boxes = inputs
+  err = bev_cuda._library().bev_splat_launch(  # pylint: disable=protected-access
+      hero.data_ptr(), walls.data_ptr(), walls.shape[1], roads.data_ptr(),
+      roads.shape[1], boxes.data_ptr(), boxes.shape[1], centers.data_ptr(),
+      counts.data_ptr(), ground.data_ptr(), out.data_ptr(), 2,
+      torch.cuda.current_stream().cuda_stream)
+  assert err != 0

@@ -91,8 +91,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_kernel_source_is_plain_cuda():
-  with open(bev_cuda.SOURCE) as fp:
-    source = fp.read()
+  source = ""
+  for path in (bev_cuda.SOURCE, *bev_cuda.HEADERS):
+    with open(path) as fp:
+      source += fp.read()
   assert "#include <torch/" not in source
   assert "__fmul_rn" in source and 'extern "C"' in source
   assert "sm_90a" in " ".join(bev_cuda.NVCC_FLAGS)
