@@ -26,7 +26,20 @@ Needs one CUDA card and the CUDA toolkit (nvcc).  It:
      of 21 runs) beside its plain version and its bound, and a fill of a
      tensor the size of the splat's output (what the card's memory gives a
      write of those bytes);
-  8. prints one JSON line of the kernels and, last, the ok/device line.
+  8. holds the learned DIM agent on the card against the CPU (Town02, 4
+     scenes, 8 NPCs, weights from one seeded generator): one policy call
+     on the same state (plan and actions within 1e-3), then a 10-step
+     rollout on each (episodes and collisions equal, distance within
+     1e-2 m); and its bfloat16 encoder against the float32 one;
+  9. drives the DIM path: ``BatchedEnv("Town01", 1024, num_vehicles=16,
+     route_capacity=1024, seed=0).rollout(DIM_STEPS, policy=DIM)`` with
+     ``make_dim_policy(ImitativeModel((4, 2), (100, 100)),
+     num_plan_steps=20)``, float32 encoder, ``compute=()``: a short warm-up
+     rollout, then a timed one with the kernels' launch counts set to 0
+     just before it and read just after (one splat a step), and the
+     stages of one policy call (observe, encoder, planner, bridge) on CUDA
+     events;
+ 10. prints one JSON line of the kernels and, last, the ok/device line.
 
 ``--prev-splat PATH`` (may be given more than once) names another design
 of the splat, a bev_splat.cu with the same C entry point
@@ -52,6 +65,13 @@ STEPS = 256
 BATCH = 1024
 TOWN = "Town01"
 VEHICLES = 16
+# Steps of the timed DIM rollout (as the bench's) and of its warm-up.
+DIM_STEPS = 256
+DIM_WARMUP_STEPS = 4
+# DIM on the card against the CPU: plan and actions of one call, and the
+# distance of a 10-step rollout (metres).
+DIM_CALL_ATOL = 1e-3
+DIM_DISTANCE_ATOL = 1e-2
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bandwidth and
 # FP32 rate outside the tensor cores.
@@ -163,6 +183,107 @@ def count_differing(out, ref) -> int:
   """Pixels of [B, 200, 200, 2] images where either channel differs (NaN
   differs from everything)."""
   return int((out != ref).any(-1).sum())
+
+
+def check_dim_card_against_cpu() -> None:
+  """One DIM policy call on the same Town02 state on the CPU and on the
+  card, then a 10-step DIM rollout on each; fails beyond the limits."""
+  import torch  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.baselines.learned.dim.policy import (  # pylint: disable=import-outside-toplevel
+      encode, encoder_copy, make_dim_policy)
+  from oatomobile_torch.envs.batched import BatchedEnv  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.models import ImitativeModel  # pylint: disable=import-outside-toplevel
+
+  def model(device):
+    return ImitativeModel((4, 2), (100, 100),
+                          generator=torch.Generator().manual_seed(0),
+                          device=device)
+
+  env = BatchedEnv("Town02", 4, num_vehicles=8, seed=4, device="cpu")
+  env.rollout(5)
+  out = {}
+  for device in ("cpu", "cuda"):
+    params, state = env.params.to(device), env.state.to(device)
+    policy = make_dim_policy(model(device))
+    obs = policy.observe(params, state)
+    z = policy.encode(obs)
+    plan = policy.plan(z, obs)
+    actions, _ = policy.act(params, state, plan, obs)
+    z16 = encode(encoder_copy(policy.model, "bfloat16"), obs.context)
+    out[device] = [x.cpu() for x in (z, plan, actions, z16)]
+  (z_c, plan_c, act_c, _), (z_g, plan_g, act_g, z16_g) = out["cpu"], out["cuda"]
+  errs = {name: float((a - b).abs().max()) for name, a, b in (
+      ("z", z_c, z_g), ("plan", plan_c, plan_g), ("actions", act_c, act_g))}
+  bf16_err = float((z16_g - z_g).abs().max())
+  bf16_bound = 0.05 * max(float(z_g.abs().max()), 1.0)
+  print("check dim policy call cuda vs cpu (Town02, 4 scenes, 8 NPCs): "
+        "z_max_abs_diff={} plan_max_abs_diff={} actions_max_abs_diff={} "
+        "(limit {}); bf16 encoder on the card: z_max_abs_diff={} (bound "
+        "{})".format(errs["z"], errs["plan"], errs["actions"], DIM_CALL_ATOL,
+                     bf16_err, bf16_bound))
+  if errs["plan"] > DIM_CALL_ATOL or errs["actions"] > DIM_CALL_ATOL:
+    fail("the DIM policy on the card disagrees with the CPU")
+  if not bf16_err < bf16_bound:
+    fail("the bfloat16 encoder strays from the float32 one")
+
+  stats = {}
+  for device in ("cpu", "cuda"):
+    env = BatchedEnv("Town02", 4, num_vehicles=8, seed=4, device=device)
+    _, _, s = env.rollout(10, policy=make_dim_policy(model(device)))
+    stats[device] = {k: v.cpu() for k, v in s.items()}
+  same = all(torch.equal(stats["cpu"][k], stats["cuda"][k])
+             for k in ("episodes", "collisions"))
+  dist_err = float((stats["cpu"]["distance"] -
+                    stats["cuda"]["distance"]).abs().max())
+  print("check dim rollout cuda vs cpu (Town02, 4 scenes, 8 NPCs, 10 "
+        "steps): episodes/collisions equal={} distance_max_abs_diff={} "
+        "(limit {}) distance_mean={:.3f}m".format(
+            same, dist_err, DIM_DISTANCE_ATOL,
+            float(stats["cpu"]["distance"].mean())))
+  if not same or dist_err > DIM_DISTANCE_ATOL:
+    fail("the DIM rollout on the card disagrees with the rollout on the CPU")
+
+
+def drive_dim_path() -> int:
+  """The DIM closed loop at full width; returns the splat's launches in
+  the timed rollout."""
+  import torch  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch import bench  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.envs.batched import BatchedEnv  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import bev_cuda  # pylint: disable=import-outside-toplevel
+  env = BatchedEnv(TOWN, BATCH, num_vehicles=VEHICLES, route_capacity=1024,
+                   seed=0, device="cuda")
+  policy = bench.dim_policy(100, "float32", device="cuda")
+  t0 = time.perf_counter()
+  _, _, s = env.rollout(DIM_WARMUP_STEPS, policy=policy)
+  float(s["distance"].sum())
+  warmup = time.perf_counter() - t0
+  bev_cuda.launches = 0
+  t0 = time.perf_counter()
+  _, _, s = env.rollout(DIM_STEPS, policy=policy)
+  float(s["distance"].sum())  # the fetch waits for the device
+  elapsed = time.perf_counter() - t0
+  launches = bev_cuda.launches
+  s = {k: v.cpu() for k, v in s.items()}
+  finite = all(bool(torch.isfinite(v.float()).all()) for v in s.values())
+  print("dim path: {} x {} steps in {:.3f}s = {:.1f} env steps/s ({:.2f} "
+        "ms a step; warm-up {} steps {:.1f}s); bev_splat launches={} for {} "
+        "steps; stats finite={} distance_mean={:.2f}m episodes={} "
+        "collisions={}".format(
+            BATCH, DIM_STEPS, elapsed, BATCH * DIM_STEPS / elapsed,
+            1e3 * elapsed / DIM_STEPS, DIM_WARMUP_STEPS, warmup, launches,
+            DIM_STEPS, finite, float(s["distance"].mean()),
+            int(s["episodes"].sum()), int(s["collisions"].sum())))
+  if launches != DIM_STEPS:
+    fail("bev_splat launched {} times in {} DIM steps".format(launches,
+                                                              DIM_STEPS))
+  if not finite or not bool((s["distance"] > 0).any()):
+    fail("DIM path stats are not finite or no scene moved")
+  stages = bench.policy_stage_ms(policy, env.params, env.state)
+  print("dim policy call B={} (CUDA events, mean of 5): {}".format(
+      BATCH, ", ".join("{} {:.3f} ms".format(k, v)
+                       for k, v in stages.items())))
+  return launches
 
 
 def main() -> None:
@@ -329,6 +450,12 @@ def main() -> None:
         "ms step".format(BATCH, ms, plain_ms, bound_ms, bound_by, slots,
                          fill_ms, ms / step_ms, step_ms))
 
+  # -- 7. DIM on the card against the CPU ---------------------------------------
+  check_dim_card_against_cpu()
+
+  # -- 8. The DIM path ------------------------------------------------------------
+  launches_dim = drive_dim_path()
+
   kernels = [{
       "name": "bev_splat",
       "status": "ported",
@@ -336,6 +463,7 @@ def main() -> None:
       "source": "oatomobile_torch/csrc/bev_splat.cu",
       "replaces": "oatomobile_tpu/ops/bev_pallas.py:54",
       "launches": launches,
+      "launches_dim": launches_dim,
       "max_abs_err": max_abs_err,
       "ms": ms,
       "plain_ms": plain_ms,

@@ -1,0 +1,79 @@
+"""Robust imitative planning over a K-model DIM ensemble: port of
+``stack_ensemble`` and ``rip_plan`` of the JAX package's
+``baselines/learned/rip/agent.py`` (its single-scene ``RIPAgent`` is not
+ported yet).
+
+A shared latent plan is optimised under the K members' imitation
+posteriors, aggregated per scene over K: WCM takes the min of the negated
+posteriors, BCM the max and MA the mean (the JAX package keeps the
+reference's naming).  The JAX package vmaps the K members over stacked
+parameters; here the K members run in turn.
+"""
+
+from typing import Mapping, Optional, Sequence
+
+import torch
+from torch import nn
+
+from oatomobile_torch.baselines.learned.dim.policy import encode
+from oatomobile_torch.models.dim import (ImitativeModel, best_adam_iterate,
+                                         goal_likelihood)
+
+ALGORITHMS = ("WCM", "MA", "BCM")
+
+
+def stack_ensemble(models: Sequence[ImitativeModel]) -> nn.ModuleList:
+  """The K members as one module list; they must share their shapes and
+  device."""
+  models = list(models)
+  if not models:
+    raise ValueError("an ensemble needs at least one model")
+  first = models[0]
+  for m in models[1:]:
+    if (m.output_shape, m.input_size) != (first.output_shape,
+                                          first.input_size):
+      raise ValueError("ensemble members differ in output or input shape")
+    if next(m.parameters()).device != next(first.parameters()).device:
+      raise ValueError("ensemble members lie on different devices")
+  return nn.ModuleList(models)
+
+
+def rip_plan(ensemble: Sequence[ImitativeModel],
+             goal: torch.Tensor,
+             context: Mapping[str, torch.Tensor],
+             *,
+             algorithm: str = "WCM",
+             num_steps: int = 10,
+             lr: float = 1e-1,
+             epsilon: float = 1.0,
+             encoders: Optional[Sequence[nn.Module]] = None) -> torch.Tensor:
+  """RIP plan [B, T, 2] for goals [B, K_goals, 2] and the models' context.
+
+  ``encoders``: the members at the encoder's precision (from
+  ``dim.policy.encoder_copy``); the members themselves when None.  z
+  returns to float32 before the flow planner.
+  """
+  if algorithm not in ALGORITHMS:
+    raise ValueError("algorithm {!r} is not one of {}".format(algorithm,
+                                                             ALGORITHMS))
+  encoders = ensemble if encoders is None else encoders
+  zs = [encode(e, context) for e in encoders]  # K x [B, 64]
+  first = ensemble[0]
+
+  def loss_fn(x):
+    """Per-scene aggregated negative posterior [B]."""
+    y = first.decode(x, zs[0])
+    gl = goal_likelihood(y, goal, epsilon=epsilon)
+    neg = -torch.stack([m.imitation_prior_from_z(y, z) + gl
+                        for m, z in zip(ensemble, zs)])  # [K, B]
+    if algorithm == "WCM":
+      return neg.amin(dim=0)
+    if algorithm == "BCM":
+      return neg.amax(dim=0)
+    return neg.mean(dim=0)
+
+  x0 = torch.zeros(zs[0].shape[:1] + first.output_shape, dtype=torch.float32,
+                   device=zs[0].device)
+  x_best = best_adam_iterate(loss_fn, x0, num_steps, lr)
+  return first.decode(x_best, zs[0])
+

@@ -2,16 +2,29 @@
 scenes on one CUDA device.
 
     python -m oatomobile_torch.bench
+    BENCH_MODE=dim python -m oatomobile_torch.bench
 
-The workload is the JAX package's ``bench.py``: Town01, 1024 scenes, 16
-NPC vehicles, route capacity 1024, seed 0, 256 closed-loop autopilot
-steps with the 200x200x2 BEV LIDAR synthesised every step; one warm-up
-rollout, then one timed rollout ending in a small fetch to the host.
-Knobs: ``BENCH_BATCH``, ``BENCH_TOWN``, ``BENCH_VEHICLES``,
-``BENCH_STEPS``, ``BENCH_MODE`` (only ``autopilot``: the learned DIM
-agent is not ported yet).  ``BENCH_PROFILE=1`` adds, on stderr, a
-per-layer breakdown of a step and the device's busy time, kernel count
-and idle share per step from a profiler trace.
+The workloads are the JAX package's ``bench.py``: Town01, 1024 scenes, 16
+NPC vehicles, route capacity 1024, seed 0, 256 closed-loop steps; one
+warm-up rollout, then one timed rollout ending in a small fetch to the
+host.  ``BENCH_MODE=autopilot`` (the default) drives the autopilot with
+the 200x200x2 BEV LIDAR synthesised every step (``compute=("lidar",)``).
+``BENCH_MODE=dim`` drives the learned DIM agent instead (BEV ->
+MobileNetV2 -> flow -> 20 in-loop Adam steps -> PID), whose policy
+synthesises the LIDAR once a step itself (``compute=()``); its weights are
+random, drawn with flax's initial distributions from a seeded
+``torch.Generator`` (no trained checkpoint exists), so they differ from
+the JAX bench's ``model.init(PRNGKey(0))`` in value but not in
+distribution.  ``BENCH_DIM_INPUT`` sets its visual input size (100) and
+``BENCH_DIM_ENCODER_DTYPE`` its encoder's precision (``float32`` or
+``bfloat16``; the planner stays float32).  float32 is IEEE float32 here:
+TF32 is off for GEMMs and convolutions.
+
+Other knobs: ``BENCH_BATCH``, ``BENCH_TOWN``, ``BENCH_VEHICLES``,
+``BENCH_STEPS``.  ``BENCH_PROFILE=1`` adds, on stderr, a per-layer
+breakdown of a step (for DIM: observe, encoder, planner, bridge), the
+stages of one DIM policy call on CUDA events, and the device's busy time,
+kernel count and idle share per step from a profiler trace.
 
 Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}, with
 ``vs_baseline`` the ratio to the 100k steps/s north-star target.
@@ -29,12 +42,9 @@ from oatomobile_torch.ops import bev, bev_cuda
 from oatomobile_torch.sim import autopilot_policy, world_step
 
 
-def layer_times(env: BatchedEnv, steps: int = 20) -> dict:
-  """Mean milliseconds per step of each layer of the rollout body, timed
-  on the host clock with a device synchronise after each layer (so the
-  layers do not overlap; their sum exceeds an unsynchronised step)."""
-  params, state = env.params, env.state
-  totals = {}
+def _timer(totals: dict):
+  """``timed(name, fn, *args)``: ``fn(*args)`` with its host time, between
+  two device synchronises, added to ``totals[name]``."""
 
   def timed(name, fn, *args):
     torch.cuda.synchronize()
@@ -44,18 +54,68 @@ def layer_times(env: BatchedEnv, steps: int = 20) -> dict:
     totals[name] = totals.get(name, 0.0) + (time.perf_counter() - t0)
     return out
 
+  return timed
+
+
+def layer_times(env: BatchedEnv, policy=None, steps: int = 20) -> dict:
+  """Mean milliseconds per step of each layer of the rollout body, timed
+  on the host clock with a device synchronise after each layer (so the
+  layers do not overlap; their sum exceeds an unsynchronised step).  With
+  a ``DimPolicy`` the policy's stages are timed instead of the autopilot
+  and the checksum's splat (its policy synthesises the LIDAR)."""
+  params, state = env.params, env.state
+  totals = {}
+  timed = _timer(totals)
   for _ in range(steps):
-    actions, state = timed("autopilot", autopilot_policy, params, state)
+    if policy is None:
+      actions, state = timed("autopilot", autopilot_policy, params, state)
+    else:
+      obs = timed("observe", policy.observe, params, state)
+      z = timed("encoder", policy.encode, obs)
+      plan = timed("planner", policy.plan, z, obs)
+      actions, state = timed("bridge", policy.act, params, state, plan, obs)
     new_state = timed("world_step", world_step, params, state, actions)
-    inputs = timed("bev_gather", bev.gather_inputs, params, new_state)
-    image = timed("bev_kernel", bev_cuda.splat_lidar_batch, *inputs)
-    timed("checksum", lambda x: x.reshape(x.shape[0], -1).sum(-1), image)
+    if policy is None:
+      inputs = timed("bev_gather", bev.gather_inputs, params, new_state)
+      image = timed("bev_kernel", bev_cuda.splat_lidar_batch, *inputs)
+      timed("checksum", lambda x: x.reshape(x.shape[0], -1).sum(-1), image)
     done = timed("done", env._done, new_state)  # pylint: disable=protected-access
     state = timed("auto_reset", env._reset_where_done, new_state, done)  # pylint: disable=protected-access
   return {name: 1e3 * t / steps for name, t in totals.items()}
 
 
-def device_busy(env: BatchedEnv, step_ms: float, steps: int = 16) -> dict:
+def policy_stage_ms(policy, params, state, calls: int = 5) -> dict:
+  """Milliseconds of each stage of one DIM policy call (observe, encoder,
+  planner, bridge) and of the whole call: CUDA events between the stages,
+  no synchronise inside the call, so a stage's time is the device's time
+  from its first to its last launch (the host's launch work included
+  where the device waits for it); the mean over ``calls`` calls after one
+  warm-up call."""
+  names = ("observe", "encoder", "planner", "bridge")
+  totals = dict.fromkeys(names + ("call",), 0.0)
+  for i in range(calls + 1):
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    torch.cuda.synchronize()
+    events[0].record()
+    obs = policy.observe(params, state)
+    events[1].record()
+    z = policy.encode(obs)
+    events[2].record()
+    plan = policy.plan(z, obs)
+    events[3].record()
+    policy.act(params, state, plan, obs)
+    events[4].record()
+    events[4].synchronize()
+    if i == 0:
+      continue
+    for k, name in enumerate(names):
+      totals[name] += events[k].elapsed_time(events[k + 1]) / calls
+    totals["call"] += events[0].elapsed_time(events[4]) / calls
+  return totals
+
+
+def device_busy(env: BatchedEnv, step_ms: float, steps: int = 16,
+                policy=None, **rollout_kwargs) -> dict:
   """Device time per step from a ``torch.profiler`` trace of ``steps``
   rollout steps: the summed self time of every kernel on the card, the
   number of kernels, and the idle share of an unprofiled step of
@@ -64,7 +124,7 @@ def device_busy(env: BatchedEnv, step_ms: float, steps: int = 16) -> dict:
   torch.cuda.synchronize()
   with profile(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
-    env.rollout(steps, compute=("lidar",))
+    env.rollout(steps, policy=policy, **rollout_kwargs)
     torch.cuda.synchronize()
   kernels = [e for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -75,45 +135,71 @@ def device_busy(env: BatchedEnv, step_ms: float, steps: int = 16) -> dict:
           "idle_share": 1.0 - busy_ms / step_ms}
 
 
+def dim_policy(size: int = 100, encoder_dtype: str = "float32",
+               device="cuda"):
+  """The bench's DIM policy: ``ImitativeModel((4, 2), (size, size))`` with
+  weights from ``torch.Generator().manual_seed(0)``, 20 plan steps."""
+  from oatomobile_torch.baselines.learned.dim.policy import make_dim_policy  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.models import ImitativeModel  # pylint: disable=import-outside-toplevel
+  model = ImitativeModel((4, 2), (size, size),
+                         generator=torch.Generator().manual_seed(0),
+                         device=device)
+  return make_dim_policy(model, num_plan_steps=20,
+                         encoder_dtype=encoder_dtype)
+
+
 def main() -> None:
   batch = int(os.environ.get("BENCH_BATCH", 1024))
   town = os.environ.get("BENCH_TOWN", "Town01")
   num_vehicles = int(os.environ.get("BENCH_VEHICLES", 16))
   steps = int(os.environ.get("BENCH_STEPS", 256))
   mode = os.environ.get("BENCH_MODE", "autopilot")
-  if mode != "autopilot":
-    raise NotImplementedError(
-        "BENCH_MODE={!r}: the learned agents are not ported to "
-        "oatomobile_torch yet; only 'autopilot' runs".format(mode))
+  if mode not in ("autopilot", "dim"):
+    raise ValueError("BENCH_MODE={!r}: 'autopilot' or 'dim'".format(mode))
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
 
   env = BatchedEnv(town=town, batch_size=batch, num_vehicles=num_vehicles,
                    route_capacity=1024, seed=0, device="cuda")
+  policy, rollout_kwargs = None, {"compute": ("lidar",)}
+  metric = "env_steps_per_sec_per_chip_1024bev"
+  if mode == "dim":
+    policy = dim_policy(int(os.environ.get("BENCH_DIM_INPUT", 100)),
+                        os.environ.get("BENCH_DIM_ENCODER_DTYPE", "float32"))
+    rollout_kwargs = {}
+    metric = "dim_closed_loop_steps_per_sec_per_chip"
 
   # Warm-up: kernel build, allocator and one full run.
-  _, _, stats = env.rollout(steps, compute=("lidar",))
+  _, _, stats = env.rollout(steps, policy=policy, **rollout_kwargs)
   float(stats["distance"].sum())
 
   t0 = time.perf_counter()
-  _, _, stats = env.rollout(steps, compute=("lidar",))
+  _, _, stats = env.rollout(steps, policy=policy, **rollout_kwargs)
   float(stats["distance"].sum())  # the fetch waits for the device
   elapsed = time.perf_counter() - t0
 
   steps_per_sec = batch * steps / elapsed
   print(json.dumps({
-      "metric": "env_steps_per_sec_per_chip_1024bev",
+      "metric": metric,
       "value": round(steps_per_sec, 1),
       "unit": "steps/s",
       "vs_baseline": round(steps_per_sec / 100_000.0, 3),
   }))
-  print("diag: elapsed={:.2f}s batch={} steps={} dist/scene={:.1f}m "
+  print("diag: mode={} elapsed={:.2f}s batch={} steps={} dist/scene={:.1f}m "
         "collisions={} device={}".format(
-            elapsed, batch, steps, float(stats["distance"].mean()),
+            mode, elapsed, batch, steps, float(stats["distance"].mean()),
             int(stats["collisions"].sum()), torch.cuda.get_device_name(0)),
         file=sys.stderr)
   if os.environ.get("BENCH_PROFILE") == "1":
-    print("layers_ms_per_step: " + json.dumps(layer_times(env)),
+    profile_steps = 16 if policy is None else 4
+    print("layers_ms_per_step: " + json.dumps(
+        layer_times(env, policy, steps=20 if policy is None else 5)),
           file=sys.stderr)
-    print("device: " + json.dumps(device_busy(env, 1e3 * elapsed / steps)),
+    if policy is not None:
+      print("policy_call_ms: " + json.dumps(
+          policy_stage_ms(policy, env.params, env.state)), file=sys.stderr)
+    print("device: " + json.dumps(device_busy(
+        env, 1e3 * elapsed / steps, profile_steps, policy, **rollout_kwargs)),
           file=sys.stderr)
 
 

@@ -124,7 +124,7 @@ class BatchedEnv:
       num_steps: int,
       policy: Optional[Callable] = None,
       collect: Sequence[str] = (),
-      compute: Sequence[str] = ("lidar",),
+      compute: Sequence[str] = (),
   ):
     """Closed-loop rollout on the device: a loop over time of
     (policy -> step -> auto-reset); nothing is fetched to the host.

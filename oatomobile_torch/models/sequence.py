@@ -1,0 +1,99 @@
+"""Autoregressive flow over trajectories: port of the JAX package's
+``models/sequence.py``.
+
+A GRU-driven invertible affine autoregressive flow, unrolled over the
+T = 4 decode steps:
+
+    _forward: x (base) -> y (data),   y_t = (y_{t-1} + dloc_t) + scale_t*x_t
+    _inverse: y (data) -> x (base),   x_t = (y_t - (y_{t-1} + dloc_t))/scale_t
+    scale_t  = softplus(head(z_t)[2:]) + 1e-3
+    logabsdet = sum_t sum_d log scale_td     (both directions)
+
+flax's ``GRUCell(carry, inputs)`` is ``torch.nn.GRUCell(inputs, carry)``:
+the same gates, with the biases of flax's ``hr`` and ``hz`` denses (which
+have none) held at 0 in ``bias_hh``.
+"""
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from oatomobile_torch import device as device_lib
+from oatomobile_torch.models import initializers
+from oatomobile_torch.models.mlp import MLP
+
+# log(2 pi) as the JAX package rounds it: a float32 log of a float32.
+LOG_2PI = float(np.log(np.float32(2.0 * np.pi)))
+
+
+class AutoregressiveFlow(nn.Module):
+  """An autoregressive flow-based sequence generator."""
+
+  def __init__(self,
+               output_shape: Tuple[int, int] = (4, 2),
+               hidden_size: int = 64,
+               *,
+               generator: Optional[torch.Generator] = None,
+               device="cuda") -> None:
+    super().__init__()
+    device = device_lib.resolve(device)
+    self.output_shape = tuple(output_shape)
+    d = self.output_shape[-1]
+    self.gru = nn.GRUCell(d, hidden_size, device="meta")
+    # Head: (dloc [D], raw_scale [D]).
+    self.locscale = MLP(hidden_size, (32, 2 * d), device="meta")
+    initializers.materialize(self, generator, device)
+
+  def _step_params(self, z: torch.Tensor, y_tm1: torch.Tensor):
+    """One GRU unroll: returns (new_z, dloc, scale)."""
+    new_z = self.gru(y_tm1, z)
+    dloc_scale = self.locscale(new_z)
+    d = self.output_shape[-1]
+    scale = F.softplus(dloc_scale[..., d:]) + 1e-3
+    return new_z, dloc_scale[..., :d], scale
+
+  def forward(self, z: torch.Tensor,
+              generator: torch.Generator) -> torch.Tensor:
+    """Stochastic generation: base noise from ``generator`` (on its own
+    device) pushed forward."""
+    x = torch.randn(z.shape[:-1] + self.output_shape, generator=generator,
+                    device=generator.device).to(z.device)
+    return self._forward(x, z)[0]
+
+  def _forward(self, x: torch.Tensor,
+               z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Base samples x [..., T, D] and context z [..., H] to
+    (y [..., T, D], logabsdet [...])."""
+    T, d = self.output_shape
+    y_tm1 = torch.zeros(z.shape[:-1] + (d,), dtype=z.dtype, device=z.device)
+    zt = z
+    ys, log_scales = [], []
+    for t in range(T):
+      zt, dloc, scale = self._step_params(zt, y_tm1)
+      y_t = (y_tm1 + dloc) + scale * x[..., t, :]
+      ys.append(y_t)
+      log_scales.append(torch.log(scale))
+      y_tm1 = y_t
+    logabsdet = torch.stack(log_scales, dim=-2).sum(dim=(-2, -1))
+    return torch.stack(ys, dim=-2), logabsdet
+
+  def _inverse(self, y: torch.Tensor, z: torch.Tensor):
+    """Data samples y [..., T, D] to (x [..., T, D], log_prob [...],
+    logabsdet [...]), log_prob being the standard-normal density of x."""
+    T, d = self.output_shape
+    y_tm1 = torch.zeros(z.shape[:-1] + (d,), dtype=z.dtype, device=z.device)
+    zt = z
+    xs, log_scales = [], []
+    for t in range(T):
+      zt, dloc, scale = self._step_params(zt, y_tm1)
+      y_t = y[..., t, :]
+      xs.append((y_t - (y_tm1 + dloc)) / scale)
+      log_scales.append(torch.log(scale))
+      y_tm1 = y_t
+    x = torch.stack(xs, dim=-2)
+    logabsdet = torch.stack(log_scales, dim=-2).sum(dim=(-2, -1))
+    log_prob = -0.5 * (x * x).sum(dim=(-2, -1)) - 0.5 * T * d * LOG_2PI
+    return x, log_prob, logabsdet

@@ -62,6 +62,19 @@ def pid_update(state: PIDState, error: torch.Tensor, dt: torch.Tensor,
   return out, PIDState(err_buf=err_buf, prev_error=error)
 
 
+def longitudinal_control(state: PIDState, current_speed: torch.Tensor,
+                         target_speed: torch.Tensor,
+                         dt: torch.Tensor) -> Tuple[torch.Tensor, PIDState]:
+  """Throttle from the speed error in km/h, clipped to [0, 1]: CARLA's
+  PIDLongitudinalController, which cannot brake."""
+  error = (target_speed - current_speed) * 3.6
+  out, new_state = pid_update(state, error, dt,
+                              k_p=LONGITUDINAL_PID["K_P"],
+                              k_d=LONGITUDINAL_PID["K_D"],
+                              k_i=LONGITUDINAL_PID["K_I"])
+  return torch.clamp(out, 0.0, 1.0), new_state
+
+
 def longitudinal_control_with_brake(
     state: PIDState, current_speed: torch.Tensor, target_speed: torch.Tensor,
     dt: torch.Tensor, *, brake_deadband: float = 0.1,

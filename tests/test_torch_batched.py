@@ -8,6 +8,7 @@ import torch
 
 from oatomobile_torch import rng
 from oatomobile_torch.envs.batched import BatchedEnv as TorchBatchedEnv
+from oatomobile_torch.ops import bev_cuda
 from oatomobile_tpu.envs.batched import BatchedEnv as JaxBatchedEnv
 
 torch.set_num_threads(1)
@@ -36,6 +37,33 @@ def test_rollout_with_lidar_matches_jax():
   np.testing.assert_allclose(got["obs_checksum"], want["obs_checksum"],
                              rtol=1e-3)
   assert (got["obs_checksum"] > 0).all()
+
+
+def test_rollout_computes_nothing_by_default(monkeypatch):
+  # As the JAX package's rollout, ``compute`` defaults to nothing: no
+  # lidar synthesis (so no splat), and a zero checksum on both sides.
+  calls = []
+  splat = bev_cuda.splat_lidar_batch
+
+  def counting_splat(*inputs):
+    calls.append(inputs[0].device)
+    return splat(*inputs)
+
+  monkeypatch.setattr(bev_cuda, "splat_lidar_batch", counting_splat)
+  kwargs = dict(num_vehicles=4, seed=2)
+  _, _, want = JaxBatchedEnv("Town02", 2, **kwargs).rollout(5)
+  _, _, got = TorchBatchedEnv("Town02", 2, device="cpu", **kwargs).rollout(5)
+  assert not np.asarray(want["obs_checksum"]).any()
+  assert not got["obs_checksum"].any()
+  assert calls == []
+  np.testing.assert_array_equal(got["episodes"].numpy(),
+                                np.asarray(want["episodes"]))
+  np.testing.assert_allclose(got["distance"].numpy(),
+                             np.asarray(want["distance"]), rtol=0, atol=1e-4)
+  # The same env with ``compute=("lidar",)`` splats once a step.
+  TorchBatchedEnv("Town02", 2, device="cpu", **kwargs).rollout(
+      5, compute=("lidar",))
+  assert calls == [torch.device("cpu")] * 5
 
 
 def test_rollout_with_policy_collects_as_jax():

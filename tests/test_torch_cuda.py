@@ -86,3 +86,34 @@ def test_bev_splat_kernel_refuses_a_misaligned_output(card):
       counts.data_ptr(), ground.data_ptr(), out.data_ptr(), 2,
       torch.cuda.current_stream().cuda_stream)
   assert err != 0
+
+
+def test_dim_policy_on_the_card_matches_the_cpu(card):
+  """One DIM policy call on the same Town02 scenes and the same weights
+  (one seeded generator) on the card and on the CPU.  TF32 is off, so the
+  card's convolutions and GEMMs are float32 too; the two differ in
+  summation order only.  Limits: the plan and the actions to 1e-3."""
+  from oatomobile_torch.baselines.learned.dim.policy import make_dim_policy
+  from oatomobile_torch.models import ImitativeModel
+  tf32 = (torch.backends.cuda.matmul.allow_tf32,
+          torch.backends.cudnn.allow_tf32)
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  try:
+    out = {}
+    for device in ("cpu", card):
+      env = BatchedEnv("Town02", 4, num_vehicles=8, seed=4, device=device)
+      env.rollout(5)
+      model = ImitativeModel(generator=torch.Generator().manual_seed(0),
+                             device=device)
+      policy = make_dim_policy(model)
+      obs = policy.observe(env.params, env.state)
+      plan = policy.plan(policy.encode(obs), obs)
+      actions, _ = policy.act(env.params, env.state, plan, obs)
+      out[str(device)] = (plan.cpu(), actions.cpu())
+    (plan_c, act_c), (plan_g, act_g) = out["cpu"], out["cuda"]
+    assert float((plan_c - plan_g).abs().max()) < 1e-3
+    assert float((act_c - act_g).abs().max()) < 1e-3
+  finally:
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32

@@ -11,6 +11,9 @@ import pytest
 import torch
 
 from oatomobile_torch.envs.batched import BatchedEnv
+from oatomobile_torch.models import (MLP, AutoregressiveFlow,
+                                     BehaviouralModel, ImitativeModel,
+                                     MobileNetV2)
 from oatomobile_torch.ops import bev_cuda
 
 torch.set_num_threads(1)
@@ -23,9 +26,22 @@ def test_import_and_rollout_without_jax():
   code = (
       "import sys\n"
       "from oatomobile_torch.envs.batched import BatchedEnv\n"
+      "from oatomobile_torch import models\n"
+      "from oatomobile_torch.models import convert\n"
+      "from oatomobile_torch.baselines.learned import bridge\n"
+      "from oatomobile_torch.baselines.learned.dim.policy import "
+      "make_dim_policy\n"
+      "from oatomobile_torch.baselines.learned.rip.policy import "
+      "make_rip_policy\n"
+      "from oatomobile_torch.baselines.learned.cil.policy import "
+      "make_cil_policy\n"
       "env = BatchedEnv('Town02', 2, num_vehicles=2, device='cpu')\n"
       "_, _, stats = env.rollout(2, compute=('lidar',))\n"
       "assert (stats['obs_checksum'] > 0).all()\n"
+      "policy = make_dim_policy(models.ImitativeModel(device='cpu'), "
+      "num_plan_steps=2)\n"
+      "_, _, stats = env.rollout(1, policy=policy)\n"
+      "assert (stats['distance'] > 0).all()\n"
       "bad = [m for m in sys.modules if m.split('.')[0] in "
       "('jax', 'jaxlib', 'flax', 'optax', 'oatomobile_tpu')]\n"
       "assert not bad, bad\n"
@@ -53,6 +69,12 @@ def test_entry_points_default_to_cuda():
     pytest.skip("a CUDA device is present: the default is usable here")
   with pytest.raises(RuntimeError, match="device='cpu'"):
     BatchedEnv("Town02", 2)
+  # The models that make_dim_policy, make_rip_policy and make_cil_policy
+  # take, and each of their parts.
+  for make in (ImitativeModel, BehaviouralModel, MobileNetV2,
+               AutoregressiveFlow, lambda: MLP(3, (4,))):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+      make()
 
 
 def _inputs(B=2, nw=3, nr=2, nv=4, dtype=torch.float32):
