@@ -39,7 +39,26 @@ Needs one CUDA card and the CUDA toolkit (nvcc).  It:
      just before it and read just after (one splat a step), and the
      stages of one policy call (observe, encoder, planner, bridge) on CUDA
      events;
- 10. prints one JSON line of the kernels and, last, the ok/device line.
+ 10. holds the batched evaluator on the card against the CPU: two CoRL2017
+     Town02 tasks at their configured 100 NPCs, 2 episodes each, through
+     ``evaluate_batched`` with the autopilot for 30 steps (per episode
+     steps, collisions, lane invasions and success equal, distance within
+     1e-3 m) and with a K = 2 RIP-WCM ensemble at 2 plan steps for 10
+     steps (steps, collisions and success equal, distance within 1e-2 m);
+ 11. evaluates the whole CARNOVEL suite (27 tasks, configured traffic, one
+     episode each) with ``evaluate_batched`` per town group (the scenes
+     one call over the suite builds): with the autopilot over the full
+     1500-step horizon, then with the RIP-WCM ensemble of K = 4
+     ``ImitativeModel((4, 2), (100, 100))`` members (flax-like initial
+     weights seeded 0..3, ``make_rip_policy``'s 10 plan steps) over a
+     horizon cut to 32 steps; the splat's launches are set to 0 before
+     the RIP run and read after (one a step per town group);
+ 12. runs the single-scene API: ``carnovel.load`` of a Town03 task with
+     the default sensors (lidar included), the ``AutopilotAgent`` through
+     ``EnvironmentLoop`` for 100 steps (one splat launch at reset and one
+     a step), then the single-scene ``DIMAgent`` for 5 steps on the card
+     and on the CPU (actions and ego-frame plans within 1e-3);
+ 13. prints one JSON line of the kernels and, last, the ok/device line.
 
 ``--prev-splat PATH`` (may be given more than once) names another design
 of the splat, a bev_splat.cu with the same C entry point
@@ -72,6 +91,24 @@ DIM_WARMUP_STEPS = 4
 # distance of a 10-step rollout (metres).
 DIM_CALL_ATOL = 1e-3
 DIM_DISTANCE_ATOL = 1e-2
+
+# The evaluator on the card against the CPU: two CoRL2017 Town02 tasks,
+# 2 episodes each; the autopilot's and RIP's horizons and distance limits
+# (metres, as the rollout checks above).
+EVAL_CHECK_TASKS = ("Town02_Straight0-v0", "Town02_Turn0-v0")
+EVAL_CHECK_STEPS, EVAL_DISTANCE_ATOL = 30, 1e-3
+EVAL_RIP_CHECK_STEPS, EVAL_RIP_DISTANCE_ATOL = 10, 1e-2
+# CARNOVEL through the batched evaluator: the autopilot over the suite's
+# 1500-step horizon; the K = 4 RIP ensemble over a horizon cut to 32 steps
+# for the time limit.
+CARNOVEL_AUTOPILOT_HORIZON = 1500
+CARNOVEL_RIP_HORIZON = 32
+RIP_MEMBERS = 4
+# The single-scene API: a Town03 CARNOVEL task, the autopilot for 100
+# steps, then the DIM agent for 5 steps on the card and on the CPU.
+SINGLE_SCENE_TASK = "AbnormalTurns0-v0"
+SINGLE_SCENE_STEPS = 100
+DIM_AGENT_STEPS, DIM_AGENT_ATOL = 5, 1e-3
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bandwidth and
 # FP32 rate outside the tensor cores.
@@ -286,6 +323,193 @@ def drive_dim_path() -> int:
   return launches
 
 
+def _episodes(results) -> list:
+  """(task_id, episode index, episode row) of evaluate_batched results."""
+  return [(task_id, e, ep) for task_id, row in sorted(results.items())
+          for e, ep in enumerate(row.get("episodes", [row]))]
+
+
+def check_eval_card_against_cpu(device="cuda") -> None:
+  """Two CoRL2017 Town02 tasks through evaluate_batched on the CPU and on
+  ``device``: with the autopilot, then with a K = 2 RIP-WCM ensemble;
+  fails beyond the limits."""
+  import torch  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.baselines.learned.rip.policy import make_rip_policy  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.benchmarks.batched_eval import evaluate_batched  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.benchmarks.corl2017.benchmark import _TASKS  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.models import ImitativeModel  # pylint: disable=import-outside-toplevel
+
+  tasks = {t: _TASKS[t] for t in EVAL_CHECK_TASKS}
+
+  def rip(dev):
+    return make_rip_policy(
+        [ImitativeModel((4, 2), (100, 100),
+                        generator=torch.Generator().manual_seed(k),
+                        device=dev) for k in range(2)],
+        algorithm="WCM", num_plan_steps=2)
+
+  for name, horizon, policy_of, keys, atol in (
+      ("autopilot", EVAL_CHECK_STEPS, lambda dev: None,
+       ("steps", "collisions", "lane_invasions", "success"),
+       EVAL_DISTANCE_ATOL),
+      ("rip-wcm K=2, 2 plan steps", EVAL_RIP_CHECK_STEPS, rip,
+       ("steps", "collisions", "success"), EVAL_RIP_DISTANCE_ATOL)):
+    runs = [evaluate_batched(tasks, policy_fn=policy_of(dev),
+                             horizon=horizon, num_episodes=2, seed=0,
+                             device=dev) for dev in ("cpu", device)]
+    cpu, card = (_episodes(r) for r in runs)
+    same = [c[:2] == g[:2] and all(c[2][k] == g[2][k] for k in keys)
+            for c, g in zip(cpu, card)]
+    dist_err = max(abs(c[2]["distance"] - g[2]["distance"])
+                   for c, g in zip(cpu, card))
+    print("check evaluate_batched {} card vs cpu ({} x 2 episodes, 100 "
+          "NPCs, {} steps): {} equal={} distance_max_abs_diff={} (limit "
+          "{}) distance_mean={:.3f}m".format(
+              name, ", ".join(EVAL_CHECK_TASKS), horizon, "/".join(keys),
+              all(same) and len(cpu) == len(card) == 4, dist_err, atol,
+              sum(ep["distance"] for _, _, ep in cpu) / len(cpu)))
+    if not all(same) or len(cpu) != len(card) or dist_err > atol:
+      fail("evaluate_batched with the {} disagrees between the card and "
+           "the CPU".format(name))
+
+
+def drive_carnovel(name: str, policy, horizon: int, device="cuda") -> dict:
+  """The 27 CARNOVEL tasks through evaluate_batched, one call per town
+  group (each group's scenes are those one call over the suite builds),
+  after a 2-step warm-up on the first group; prints per-group seconds,
+  env steps/s and the summary's rates.  Returns the splat's launches in
+  each group's run."""
+  import torch  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.benchmarks.batched_eval import (evaluate_batched,  # pylint: disable=import-outside-toplevel
+                                                        summarize)
+  from oatomobile_torch.benchmarks.carnovel.benchmark import _TASKS  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.maps import load_town  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import bev_cuda  # pylint: disable=import-outside-toplevel
+
+  groups = {}
+  for task_id, config in sorted(_TASKS.items()):
+    groups.setdefault(config["town"], {})[task_id] = config
+  for town in groups:
+    load_town(town)  # builds the town's cache outside the timed runs
+  evaluate_batched(next(iter(groups.values())), policy_fn=policy, horizon=2,
+                   device=device)
+  results, seconds, launches = {}, {}, {}
+  for town, tasks in groups.items():
+    bev_cuda.launches = 0
+    t0 = time.perf_counter()
+    results.update(evaluate_batched(tasks, policy_fn=policy,
+                                    horizon=horizon, device=device))
+    seconds[town] = time.perf_counter() - t0
+    launches[town] = bev_cuda.launches
+  total = sum(seconds.values())
+  summary = summarize(results)
+  finite = all(torch.isfinite(torch.tensor(float(r["distance"])))
+               for r in results.values())
+  print("carnovel {}: {} tasks x {} steps in {:.3f}s = {:.1f} env steps/s; "
+        "per town group: {}; bev_splat launches per group: {}; success_rate"
+        "={:.4f} collision_rate={:.4f} timeout_rate={:.4f} mean_distance="
+        "{:.2f}m".format(
+            name, len(results), horizon, total, len(results) * horizon /
+            total, ", ".join("{} {} tasks {:.3f}s ({:.1f} env steps/s)".format(
+                town, len(groups[town]), seconds[town],
+                len(groups[town]) * horizon / seconds[town])
+                             for town in groups),
+            launches, summary["success_rate"], summary["collision_rate"],
+            summary["timeout_rate"], summary["mean_distance"]))
+  if len(results) != 27 or summary["episodes"] != 27 or not finite:
+    fail("the CARNOVEL evaluation with the {} did not give 27 finite "
+         "episodes".format(name))
+  if not any(r["distance"] > 0 for r in results.values()):
+    fail("no hero moved in the CARNOVEL evaluation with the " + name)
+  return launches
+
+
+def rip_ensemble(device="cuda"):
+  """K = RIP_MEMBERS ImitativeModel((4, 2), (100, 100)) members at the
+  published widths, flax-like initial weights seeded 0..K-1."""
+  import torch  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.models import ImitativeModel  # pylint: disable=import-outside-toplevel
+  return [ImitativeModel((4, 2), (100, 100),
+                         generator=torch.Generator().manual_seed(k),
+                         device=device) for k in range(RIP_MEMBERS)]
+
+
+def drive_single_scene(device="cuda", steps: int = SINGLE_SCENE_STEPS) -> int:
+  """The single-scene API on ``device``: a CARNOVEL task with the default
+  sensors, the AutopilotAgent through EnvironmentLoop; returns the
+  splat's launches in the loop (reset included)."""
+  from oatomobile_torch import EnvironmentLoop, StepsMetric  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.baselines.rulebased import AutopilotAgent  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.benchmarks.carnovel.benchmark import CARNOVEL  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.envs import (CollisionsMetric, DistanceMetric,  # pylint: disable=import-outside-toplevel
+                                     LaneInvasionsMetric)
+  from oatomobile_torch.ops import bev_cuda  # pylint: disable=import-outside-toplevel
+
+  env = CARNOVEL(device=device).load(SINGLE_SCENE_TASK,
+                                     max_episode_steps=steps)
+  env.seed(0)
+  sensors = sorted(env.simulator.sensor_suite.sensors)
+  metrics = [StepsMetric(), CollisionsMetric(), LaneInvasionsMetric(),
+             DistanceMetric()]
+  bev_cuda.launches = 0
+  t0 = time.perf_counter()
+  results = EnvironmentLoop(AutopilotAgent, env, metrics=metrics).run()
+  elapsed = time.perf_counter() - t0
+  launches = bev_cuda.launches
+  print("single scene {} (Town03, 100 NPCs, sensors {}): AutopilotAgent "
+        "through EnvironmentLoop, {} steps in {:.3f}s = {:.1f} steps/s "
+        "(reset and its 50 warm-up steps included); bev_splat launches={}; "
+        "metrics {}".format(SINGLE_SCENE_TASK, ",".join(sensors),
+                            results["steps"], elapsed,
+                            results["steps"] / elapsed, launches, results))
+  if "lidar" not in sensors or results["distance"] <= 0:
+    fail("the single-scene episode has no lidar or did not move")
+  if device != "cpu" and launches != results["steps"] + 1:
+    fail("bev_splat launched {} times in a {}-step single-scene episode "
+         "(one at reset and one a step expected)".format(launches,
+                                                          results["steps"]))
+  return launches
+
+
+def check_dim_agent_card_against_cpu(device="cuda") -> None:
+  """The single-scene DIMAgent for DIM_AGENT_STEPS steps on ``device`` and
+  on the CPU, each on its own env of the same task and seed; fails when
+  an action differs by more than DIM_AGENT_ATOL."""
+  import numpy as np  # pylint: disable=import-outside-toplevel
+  import torch  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.baselines.learned import DIMAgent  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.benchmarks.carnovel.benchmark import CARNOVEL  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.models import ImitativeModel  # pylint: disable=import-outside-toplevel
+
+  actions, plans = {}, {}
+  for dev in ("cpu", device):
+    env = CARNOVEL(device=dev).load(SINGLE_SCENE_TASK)
+    env.seed(0)
+    model = ImitativeModel((4, 2), (100, 100),
+                           generator=torch.Generator().manual_seed(0),
+                           device=dev)
+    obs = env.reset()
+    agent = DIMAgent(env, model=model)
+    actions[dev], plans[dev] = [], []
+    for _ in range(DIM_AGENT_STEPS):
+      plans[dev].append(agent(dict(obs)))  # the ego-frame plan it tracks
+      action = agent.act(obs)
+      actions[dev].append(action.as_array())
+      obs, _, _, _ = env.step(action)
+    env.close()
+  err = float(np.abs(np.asarray(actions["cpu"]) -
+                     np.asarray(actions[device])).max())
+  plan_err = float(np.abs(np.asarray(plans["cpu"]) -
+                          np.asarray(plans[device])).max())
+  print("check DIMAgent single scene card vs cpu ({}, {} steps): "
+        "actions_max_abs_diff={} plan_max_abs_diff={}m (limit {}) actions "
+        "{}".format(SINGLE_SCENE_TASK, DIM_AGENT_STEPS, err, plan_err,
+                    DIM_AGENT_ATOL,
+                    np.round(np.asarray(actions[device]), 4).tolist()))
+  if err > DIM_AGENT_ATOL or plan_err > DIM_AGENT_ATOL:
+    fail("the DIM agent on the card disagrees with the CPU")
+
+
 def main() -> None:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--prev-splat", action="append", default=[],
@@ -456,6 +680,26 @@ def main() -> None:
   # -- 8. The DIM path ------------------------------------------------------------
   launches_dim = drive_dim_path()
 
+  # -- 9. The batched evaluator on the card against the CPU --------------------
+  check_eval_card_against_cpu()
+
+  # -- 10. CARNOVEL through the batched evaluator ------------------------------
+  from oatomobile_torch.baselines.learned.rip.policy import make_rip_policy  # pylint: disable=import-outside-toplevel
+  drive_carnovel("autopilot", None, CARNOVEL_AUTOPILOT_HORIZON)
+  print("carnovel rip-wcm: horizon cut to {} steps of the suite's 1500 for "
+        "the time limit".format(CARNOVEL_RIP_HORIZON))
+  rip_launches = drive_carnovel(
+      "rip-wcm K={} published widths, 10 plan steps".format(RIP_MEMBERS),
+      make_rip_policy(rip_ensemble(), algorithm="WCM"),
+      CARNOVEL_RIP_HORIZON)
+  if any(n != CARNOVEL_RIP_HORIZON for n in rip_launches.values()):
+    fail("bev_splat launched {} times per town group in {} RIP steps".format(
+        rip_launches, CARNOVEL_RIP_HORIZON))
+
+  # -- 11. The single-scene API --------------------------------------------------
+  launches_single = drive_single_scene()
+  check_dim_agent_card_against_cpu()
+
   kernels = [{
       "name": "bev_splat",
       "status": "ported",
@@ -464,6 +708,8 @@ def main() -> None:
       "replaces": "oatomobile_tpu/ops/bev_pallas.py:54",
       "launches": launches,
       "launches_dim": launches_dim,
+      "launches_eval_rip": sum(rip_launches.values()),
+      "launches_single_scene": launches_single,
       "max_abs_err": max_abs_err,
       "ms": ms,
       "plain_ms": plain_ms,

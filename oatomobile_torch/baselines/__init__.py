@@ -1,1 +1,5 @@
-"""Baseline agents of the port: the learned in-loop policies."""
+"""Baseline agents: rule-based and learned."""
+
+from oatomobile_torch.baselines.base import SetPointAgent
+
+__all__ = ["SetPointAgent"]

@@ -1,1 +1,4 @@
-"""The CIL in-loop policy."""
+from oatomobile_torch.baselines.learned.cil.agent import CILAgent
+from oatomobile_torch.models.cil import BehaviouralModel
+
+__all__ = ["CILAgent", "BehaviouralModel"]

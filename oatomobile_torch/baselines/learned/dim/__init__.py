@@ -1,1 +1,4 @@
-"""The DIM in-loop policy."""
+from oatomobile_torch.baselines.learned.dim.agent import DIMAgent
+from oatomobile_torch.models.dim import ImitativeModel
+
+__all__ = ["DIMAgent", "ImitativeModel"]

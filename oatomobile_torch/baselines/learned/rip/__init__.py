@@ -1,1 +1,3 @@
-"""The RIP planner and in-loop policy."""
+from oatomobile_torch.baselines.learned.rip.agent import RIPAgent
+
+__all__ = ["RIPAgent"]

@@ -1,7 +1,6 @@
-"""Robust imitative planning over a K-model DIM ensemble: port of
-``stack_ensemble`` and ``rip_plan`` of the JAX package's
-``baselines/learned/rip/agent.py`` (its single-scene ``RIPAgent`` is not
-ported yet).
+"""Robust imitative planning over a K-model DIM ensemble: port of the JAX
+package's ``baselines/learned/rip/agent.py`` (``stack_ensemble``,
+``rip_plan`` and the single-scene ``RIPAgent``).
 
 A shared latent plan is optimised under the K members' imitation
 posteriors, aggregated per scene over K: WCM takes the min of the negated
@@ -12,12 +11,16 @@ parameters; here the K members run in turn.
 
 from typing import Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
+import oatomobile_torch
+from oatomobile_torch.baselines.base import SetPointAgent
+from oatomobile_torch.baselines.learned import common
 from oatomobile_torch.baselines.learned.dim.policy import encode
-from oatomobile_torch.models.dim import (ImitativeModel, best_adam_iterate,
-                                         goal_likelihood)
+from oatomobile_torch.models.dim import (CONTEXT_KEYS, ImitativeModel,
+                                         best_adam_iterate, goal_likelihood)
 
 ALGORITHMS = ("WCM", "MA", "BCM")
 
@@ -77,3 +80,37 @@ def rip_plan(ensemble: Sequence[ImitativeModel],
   x_best = best_adam_iterate(loss_fn, x0, num_steps, lr)
   return first.decode(x_best, zs[0])
 
+
+class RIPAgent(SetPointAgent):
+  """The robust imitative planning agent: one shared plan under the K
+  members' aggregated posteriors, 10 Adam steps at lr 1e-1."""
+
+  def __init__(self, environment: oatomobile_torch.Env, *, algorithm: str,
+               models: Sequence[ImitativeModel], **kwargs) -> None:
+    """Args:
+      algorithm: one of {"WCM", "MA", "BCM"}.
+      models: the K ImitativeModels with their weights (the JAX agent takes
+        one flax module and K parameter trees); frozen, on one device.
+    """
+    if algorithm not in ALGORITHMS:
+      raise ValueError("algorithm {!r} is not one of {}".format(algorithm,
+                                                               ALGORITHMS))
+    super().__init__(environment=environment, **kwargs)
+    self._ensemble = stack_ensemble(models)
+    self._ensemble.requires_grad_(False)
+    self._ensemble.eval()
+    self._algorithm = algorithm
+
+  def __call__(self, observation: Mapping[str, np.ndarray],
+               **kwargs) -> np.ndarray:
+    first = self._ensemble[0]
+    obs = common.prepare_observation(observation)
+    sample = first.transform(common.model_inputs(obs, first))
+    context = common.model_context(sample, CONTEXT_KEYS)
+    with torch.no_grad():
+      plan = rip_plan(self._ensemble, sample.get("goal"), context,
+                      algorithm=self._algorithm,
+                      num_steps=kwargs.get("num_steps", 10),
+                      lr=kwargs.get("lr", 1e-1),
+                      epsilon=kwargs.get("epsilon", 1.0))
+    return common.interpolate_plan(plan[0].cpu().numpy())

@@ -2,8 +2,8 @@
 
 Port of the JAX package's ``sensors/synth.py``: each sensor is a function
 of ``(params, state)`` returning ``[B, ...]``.  The state sensors, the
-goal sensor and the BEV LIDAR are ported; the cameras, the bird-view
-renders and the game-state masks are not yet, and asking for them raises
+goal sensor, the BEV LIDAR and the two bird-view renders are ported; the
+cameras and the game-state masks are not yet, and asking for them raises
 ``NotImplementedError``.
 
 The LIDAR goes through the hand-written CUDA splat when the state lies on
@@ -13,12 +13,13 @@ version.
 
 from typing import Dict, Sequence
 
+import numpy as np
 import torch
 
 from oatomobile_torch.ops import bev, bev_cuda
 from oatomobile_torch.sim import traffic
 from oatomobile_torch.sim.types import SceneState, WorldParams
-from oatomobile_torch.sim.util import take
+from oatomobile_torch.sim.util import constant, take
 
 # Observation keys synthesised on device (order-independent).
 STATE_SENSORS = (
@@ -41,8 +42,7 @@ NUM_GOALS = 10          # reference defaults.py:139 num_goals
 GOAL_SPACING_M = 2.0    # reference defaults.py:140 sampling_radius
 
 # Sensors of the JAX package that this port does not synthesise yet.
-NOT_PORTED = ("bird_view_camera_rgb", "bird_view_camera_cityscapes",
-              "game_state", "front_camera_rgb", "rear_camera_rgb",
+NOT_PORTED = ("game_state", "front_camera_rgb", "rear_camera_rgb",
               "left_camera_rgb", "right_camera_rgb")
 
 
@@ -118,6 +118,121 @@ def lidar(params: WorldParams, state: SceneState) -> torch.Tensor:
   return bev_cuda.splat_lidar_batch(*bev.gather_inputs(params, state))
 
 
+# --- Bird-view cameras ------------------------------------------------------
+# CityScapes palette entries used by CARLA semantic segmentation, and the
+# RGB pseudo-render's colours (as float32 in [0, 1]).
+_CS_ROAD = np.asarray([128, 64, 128], np.float32) / 255.0
+_CS_ROADLINE = np.asarray([157, 234, 50], np.float32) / 255.0
+_CS_BUILDING = np.asarray([70, 70, 70], np.float32) / 255.0
+_CS_VEHICLE = np.asarray([0, 0, 142], np.float32) / 255.0
+_CS_PEDESTRIAN = np.asarray([220, 20, 60], np.float32) / 255.0
+_CS_GROUND = np.asarray([81, 0, 81], np.float32) / 255.0
+
+_RGB_ROAD = np.asarray([60, 60, 60], np.float32) / 255.0
+_RGB_LINE = np.asarray([200, 200, 200], np.float32) / 255.0
+_RGB_BUILDING = np.asarray([120, 100, 90], np.float32) / 255.0
+_RGB_VEHICLE = np.asarray([30, 60, 140], np.float32) / 255.0
+_RGB_PED = np.asarray([200, 60, 60], np.float32) / 255.0
+_RGB_GROUND = np.asarray([90, 120, 80], np.float32) / 255.0
+_RGB_HERO = np.asarray([200, 30, 30], np.float32) / 255.0
+
+# Palettes indexed by the class codes of `_bird_view_classes`.
+_CS_PALETTE = tuple(map(tuple, np.stack([
+    _CS_GROUND, _CS_ROAD, _CS_ROADLINE, _CS_BUILDING, _CS_VEHICLE,
+    _CS_PEDESTRIAN, _CS_VEHICLE]).tolist()))
+_RGB_PALETTE = tuple(map(tuple, np.stack([
+    _RGB_GROUND, _RGB_ROAD, _RGB_LINE, _RGB_BUILDING, _RGB_VEHICLE,
+    _RGB_PED, _RGB_HERO]).tolist()))
+
+BIRD_VIEW_SIZE = 200      # 200x200, as the reference's z = 25 camera
+BIRD_VIEW_METERS = 25.0   # half-width covered
+PED_HALF_SIZE = 0.35      # pedestrians' half length and half width, m
+
+
+def _bird_view_axis(device) -> torch.Tensor:
+  """[BIRD_VIEW_SIZE] pixel centres along one axis, metres from the hero
+  (``jnp.linspace`` of the JAX package, to its last ulp)."""
+  size, half = BIRD_VIEW_SIZE, BIRD_VIEW_METERS
+  return constant(tuple(np.linspace(-half + half / size, half - half / size,
+                                    size, dtype=np.float32).tolist()),
+                  device)
+
+
+def _bird_view_classes(params: WorldParams,
+                       state: SceneState) -> torch.Tensor:
+  """[B, 200, 200] int32 class image around each hero (axis conventions
+  as the lidar): 0 ground, 1 road, 2 roadline, 3 building, 4 vehicle,
+  5 pedestrian, 6 hero.
+
+  The actor test is a plain [B, 200, 200, K] box test in torch, as in the
+  JAX package (not a kernel there either)."""
+  c = _bird_view_axis(state.hero_xy.device)
+  size = c.shape[0]
+  lx = c[:, None].expand(size, size)
+  ly = c[None, :].expand(size, size)
+  cos_y = torch.cos(state.hero_yaw)
+  sin_y = torch.sin(state.hero_yaw)
+  c3, s3 = cos_y[:, None, None], sin_y[:, None, None]
+  wx = state.hero_xy[:, 0, None, None] + c3 * lx - s3 * ly
+  wy = state.hero_xy[:, 1, None, None] + s3 * lx + c3 * ly
+
+  origin = params.map["raster_origin"]
+  ppm = params.map["raster_ppm"]
+  road_mask = params.map["road_mask"]
+  H, W = road_mask.shape
+  ix = torch.clamp(torch.round((wx - origin[0]) * ppm).to(torch.int32), 0,
+                   H - 1).long()
+  iy = torch.clamp(torch.round((wy - origin[1]) * ppm).to(torch.int32), 0,
+                   W - 1).long()
+  cls = torch.zeros(wx.shape, dtype=torch.int32, device=wx.device)
+  cls = torch.where(road_mask[ix, iy], 1, cls)
+  cls = torch.where(params.map["lane_mask"][ix, iy], 2, cls)
+  cls = torch.where(params.map["obstacle_mask"][ix, iy], 3, cls)
+
+  def boxes_cls(xy, yaw, alive, half_l, half_w, code, cls):
+    rel = xy - state.hero_xy[:, None, :]                        # [B, K, 2]
+    cy, sy = cos_y[:, None], sin_y[:, None]
+    u = cy * rel[..., 0] + sy * rel[..., 1]
+    v = -sy * rel[..., 0] + cy * rel[..., 1]
+    du = lx[None, :, :, None] - u[:, None, None, :]            # [B, S, S, K]
+    dv = ly[None, :, :, None] - v[:, None, None, :]
+    yr = yaw - state.hero_yaw[:, None]
+    cr, sr = torch.cos(yr)[:, None, None, :], torch.sin(yr)[:, None, None, :]
+    bu = cr * du + sr * dv
+    bv = -sr * du + cr * dv
+    inside = ((bu.abs() <= half_l) & (bv.abs() <= half_w) &
+              alive[:, None, None, :])
+    return torch.where(inside.any(-1), code, cls)
+
+  vehicle = params.vehicle
+  if state.num_npcs > 0:
+    cls = boxes_cls(state.npc_xy, state.npc_yaw, state.npc_alive,
+                    vehicle.length / 2, vehicle.width / 2, 4, cls)
+  if state.num_pedestrians > 0:
+    half = constant(float(np.float32(PED_HALF_SIZE)), wx.device)
+    cls = boxes_cls(state.ped_xy, state.ped_yaw, state.ped_alive, half,
+                    half, 5, cls)
+
+  # Hero box at the centre.
+  hero_inside = ((lx.abs() <= vehicle.length / 2) &
+                 (ly.abs() <= vehicle.width / 2))
+  return torch.where(hero_inside[None], 6, cls)
+
+
+def bird_view_cityscapes(params: WorldParams,
+                         state: SceneState) -> torch.Tensor:
+  """[B, 200, 200, 3] float RGB in the CityScapes palette (sensor
+  'bird_view_camera_cityscapes')."""
+  palette = constant(_CS_PALETTE, state.hero_xy.device)
+  return palette[_bird_view_classes(params, state).long()]
+
+
+def bird_view_rgb(params: WorldParams, state: SceneState) -> torch.Tensor:
+  """[B, 200, 200, 3] float RGB pseudo-render ('bird_view_camera_rgb')."""
+  palette = constant(_RGB_PALETTE, state.hero_xy.device)
+  return palette[_bird_view_classes(params, state).long()]
+
+
 def actors_tracker(state: SceneState) -> torch.Tensor:
   """[B, K+P, 4] (x, y, z, alive) poses of all non-hero actors."""
   rows = []
@@ -172,6 +287,10 @@ def synthesize(params: WorldParams,
       out[key] = lidar(params, state)
     elif key == "actors_tracker":
       out[key] = actors_tracker(state)
+    elif key == "bird_view_camera_rgb":
+      out[key] = bird_view_rgb(params, state)
+    elif key == "bird_view_camera_cityscapes":
+      out[key] = bird_view_cityscapes(params, state)
     elif key in NOT_PORTED:
       raise NotImplementedError(
           "sensor {!r} is not ported to oatomobile_torch yet".format(key))

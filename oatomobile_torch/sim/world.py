@@ -35,8 +35,13 @@ SIMULATOR_FPS = 20
 NPC_TARGET_SPEED = 30.0 / 3.6  # m/s
 
 
-def make_params(town: TownMap, device="cuda") -> WorldParams:
-  """Builds world parameters for a town on ``device``."""
+def make_params(town: TownMap,
+                fps: int = SIMULATOR_FPS,
+                npc_target_speed: float = NPC_TARGET_SPEED,
+                device="cuda") -> WorldParams:
+  """Builds world parameters for a town on ``device``: a tick of
+  ``1 / fps`` seconds, background traffic cruising at
+  ``npc_target_speed`` m/s."""
   device = device_lib.resolve(device)
 
   def f32(x):
@@ -45,8 +50,8 @@ def make_params(town: TownMap, device="cuda") -> WorldParams:
   return WorldParams(
       map=town.tensors(device),
       vehicle=VehicleSpec.make(device),
-      dt=f32(1.0 / SIMULATOR_FPS),
-      npc_target_speed=f32(NPC_TARGET_SPEED),
+      dt=f32(1.0 / fps),
+      npc_target_speed=f32(npc_target_speed),
       tl_green=f32(10.0),   # measured optimum, see the JAX package
       tl_yellow=f32(3.0),
       proximity_vehicle_threshold=f32(10.0),
@@ -288,6 +293,8 @@ def init_scene_batch(
     num_pedestrians=0,
     route_capacity: int = DEFAULT_ROUTE_CAPACITY,
     seed: int = 0,
+    spawn_points: Optional[np.ndarray] = None,
+    destinations: Optional[np.ndarray] = None,
     device="cuda",
 ) -> SceneState:
   """Vectorised initialisation of a whole scene batch (host-side numpy,
@@ -295,6 +302,9 @@ def init_scene_batch(
 
   ``num_vehicles`` / ``num_pedestrians`` may be per-scene arrays [B]:
   actor arrays are padded to the batch max and alive-masked per scene.
+  ``spawn_points`` / ``destinations`` [B] place each hero (indices modulo
+  the town's spawn points); a given array skips its random draw, so the
+  later draws (NPC placement, pedestrians) shift as in the JAX package.
   """
   device = device_lib.resolve(device)
   rng = np.random.RandomState(seed)
@@ -304,8 +314,10 @@ def init_scene_batch(
   nv = np.broadcast_to(np.asarray(num_vehicles, np.int32), (B,))
   npd = np.broadcast_to(np.asarray(num_pedestrians, np.int32), (B,))
 
-  sp = rng.randint(S, size=B)
-  dp = rng.randint(S, size=B)
+  sp = (rng.randint(S, size=B) if spawn_points is None
+        else np.asarray(spawn_points) % S)
+  dp = (rng.randint(S, size=B) if destinations is None
+        else np.asarray(destinations) % S)
 
   origin_wps = town.spawn_wp[sp]
   dest_wps = town.spawn_wp[dp]

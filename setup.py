@@ -32,6 +32,8 @@ setup(
         "oatomobile_tpu.benchmarks.corl2017": ["configs/*.json"],
         "oatomobile_tpu.native": ["*.cc"],
         "oatomobile_torch": ["csrc/*.cu", "csrc/*.cuh"],
+        "oatomobile_torch.benchmarks.carnovel": ["configs/*.json"],
+        "oatomobile_torch.benchmarks.corl2017": ["configs/*.json"],
         "oatomobile_torch.maps": ["benchmark_tasks.json"],
         "oatomobile_torch.native": ["*.cc"],
     },

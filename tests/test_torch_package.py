@@ -10,11 +10,16 @@ import sys
 import pytest
 import torch
 
+from oatomobile_torch.benchmarks.batched_eval import evaluate_batched
 from oatomobile_torch.envs.batched import BatchedEnv
+from oatomobile_torch.envs.carla import CARLAEnv, CARLANavEnv
+from oatomobile_torch.maps import load_town
 from oatomobile_torch.models import (MLP, AutoregressiveFlow,
                                      BehaviouralModel, ImitativeModel,
                                      MobileNetV2)
 from oatomobile_torch.ops import bev_cuda
+from oatomobile_torch.sim import make_params
+from oatomobile_torch.simulators.cuda import CUDASimulator
 
 torch.set_num_threads(1)
 
@@ -35,6 +40,22 @@ def test_import_and_rollout_without_jax():
       "make_rip_policy\n"
       "from oatomobile_torch.baselines.learned.cil.policy import "
       "make_cil_policy\n"
+      "import oatomobile_torch\n"
+      "from oatomobile_torch.benchmarks import carnovel, corl2017, run\n"
+      "from oatomobile_torch.benchmarks.batched_eval import "
+      "evaluate_batched\n"
+      "from oatomobile_torch.envs.carla import CARLANavEnv\n"
+      "from oatomobile_torch.simulators.cuda import CUDASimulator\n"
+      "from oatomobile_torch.baselines.rulebased import AutopilotAgent, "
+      "BlindAgent\n"
+      "from oatomobile_torch.baselines.learned import CILAgent, DIMAgent, "
+      "RIPAgent\n"
+      "from oatomobile_torch.benchmarks.corl2017.benchmark import _TASKS\n"
+      "tasks = {t: dict(_TASKS[t], num_vehicles=2) for t in "
+      "('Town02_Turn0-v0', 'Town02_Straight0-v0')}\n"
+      "out = evaluate_batched(tasks, horizon=2, device='cpu')\n"
+      "assert sorted(out) == sorted(tasks), out\n"
+      "assert all(r['steps'] == 2 for r in out.values()), out\n"
       "env = BatchedEnv('Town02', 2, num_vehicles=2, device='cpu')\n"
       "_, _, stats = env.rollout(2, compute=('lidar',))\n"
       "assert (stats['obs_checksum'] > 0).all()\n"
@@ -73,6 +94,16 @@ def test_entry_points_default_to_cuda():
   # take, and each of their parts.
   for make in (ImitativeModel, BehaviouralModel, MobileNetV2,
                AutoregressiveFlow, lambda: MLP(3, (4,))):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+      make()
+  # The evaluator, the single-scene env and its simulator, the world's
+  # parameters.
+  task = {"t-v0": {"town": "Town02", "origin": 1, "destination": 9}}
+  for make in (lambda: evaluate_batched(task, horizon=1),
+               lambda: CARLANavEnv(town="Town02", origin=1, destination=9),
+               lambda: CARLAEnv(town="Town02"),
+               lambda: CUDASimulator("Town02"),
+               lambda: make_params(load_town("Town02"))):
     with pytest.raises(RuntimeError, match="device='cpu'"):
       make()
 

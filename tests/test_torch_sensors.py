@@ -1,6 +1,7 @@
 """oatomobile_torch.sensors.synth against oatomobile_tpu.sensors.synth on
-the CPU: the state sensors, the goal sensor and the actor tracker from the
-same scene state, and the sensors the port does not synthesise yet."""
+the CPU: the state sensors, the goal sensor, the actor tracker and the
+bird-view renders from the same scene state, and the sensors the port
+does not synthesise yet."""
 
 import jax
 import jax.numpy as jnp
@@ -66,3 +67,61 @@ def test_sensors_not_ported_raise(scenes, key):
   _, _, tp, ts = scenes
   with pytest.raises(NotImplementedError):
     tsynth.synthesize(tp, ts, (key,))
+
+
+BIRD_VIEW_KEYS = ("bird_view_camera_rgb", "bird_view_camera_cityscapes")
+# A bird-view pixel takes the class of the raster cell or box its centre
+# falls in; XLA's FMA and the last ulp of cos/sin move a centre lying on a
+# cell or box edge to the other side: under 1e-3 of the pixels.
+BIRD_VIEW_PIXEL_FRACTION = 1e-3
+
+
+@pytest.mark.parametrize("key", BIRD_VIEW_KEYS)
+def test_bird_view_matches(scenes, key):
+  jp, states, tp, ts = scenes
+  want = np.asarray(jax.vmap(
+      lambda s: jsynth.synthesize(jp, s, (key,)))(states)[key])
+  got = tsynth.synthesize(tp, ts, (key,))[key].numpy()
+  assert got.shape == want.shape == (3, 200, 200, 3)
+  assert got.dtype == want.dtype
+  differing = np.any(got != want, axis=-1).mean()
+  assert differing < BIRD_VIEW_PIXEL_FRACTION, differing
+  # Ground, road, lane line, building and hero colours all appear.
+  assert len(np.unique(want.reshape(-1, 3), axis=0)) >= 5
+
+
+def test_bird_view_axis_is_jnp_linspace():
+  half, size = jsynth.BIRD_VIEW_METERS, jsynth.BIRD_VIEW_SIZE
+  want = np.asarray(jnp.linspace(-half + half / size, half - half / size,
+                                 size))
+  got = tsynth._bird_view_axis("cpu").numpy()  # pylint: disable=protected-access
+  # XLA rounds start * (1 - t) + stop * t its own way: a few ulps of the
+  # 25 m half-width, far below a raster cell (0.1 m or more).
+  np.testing.assert_allclose(got, want, rtol=0, atol=4e-6)
+
+
+def test_bird_view_classes_draw_actors():
+  """NPCs and pedestrians placed around the hero show as their classes:
+  the box test against the JAX package's, exactly."""
+  jt = jax_load_town("Town03")
+  jp = jsim.make_params(jt)
+  states = jsim.init_scene_batch(jt, 2, num_vehicles=6, num_pedestrians=6,
+                                 seed=3)
+  rs = np.random.RandomState(0)
+  hero = np.asarray(states.hero_xy)[:, None, :]
+  states = states.replace(
+      npc_xy=jnp.asarray(hero + rs.uniform(-15, 15, (2, 6, 2)),
+                         jnp.float32),
+      npc_yaw=jnp.asarray(rs.uniform(-3, 3, (2, 6)), jnp.float32),
+      ped_xy=jnp.asarray(hero + rs.uniform(-15, 15, (2, 6, 2)),
+                         jnp.float32),
+      ped_yaw=jnp.asarray(rs.uniform(-3, 3, (2, 6)), jnp.float32))
+  want = np.asarray(jax.vmap(
+      lambda s: jsynth._bird_view_classes(jp, s))(states))  # pylint: disable=protected-access
+  tp = tsim.make_params(torch_load_town("Town03"), device="cpu")
+  ts = ttypes.scene_state_from_numpy(jax_state_to_numpy(states), "cpu")
+  got = tsynth._bird_view_classes(tp, ts).numpy()  # pylint: disable=protected-access
+  assert got.dtype == want.dtype
+  assert np.mean(got != want) < BIRD_VIEW_PIXEL_FRACTION
+  for code in (4, 5, 6):
+    assert (want == code).sum() > 20, code

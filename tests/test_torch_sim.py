@@ -49,6 +49,40 @@ def test_init_scene_batch_matches():
                       ttypes.scene_state_to_numpy(got), atol=0.0)
 
 
+def test_init_scene_batch_with_spawn_points_matches():
+  """Given spawn points and destinations skip their draws, so every later
+  draw (NPC scores, pedestrians) shifts exactly as in the JAX package."""
+  jt, tt = jax_load_town("Town02"), torch_load_town("Town02")
+  kwargs = dict(num_vehicles=np.asarray([0, 2, 2, 3, 0, 1]),
+                num_pedestrians=2, seed=5,
+                spawn_points=np.asarray([10, 5, 300, 7, 10, 40]),
+                destinations=np.asarray([40, 60, 3, 100, 41, 2]))
+  want = jsim.init_scene_batch(jt, 6, **kwargs)
+  got = tsim.init_scene_batch(tt, 6, device="cpu", **kwargs)
+  assert_states_match(jax_state_to_numpy(want),
+                      ttypes.scene_state_to_numpy(got), atol=0.0)
+  # Spawn indices wrap around the town's 264 spawn points (300 -> 36).
+  assert tt.num_spawn_points == 264
+  np.testing.assert_array_equal(
+      got.hero_wp.numpy(),
+      tt.spawn_wp[kwargs["spawn_points"] % tt.num_spawn_points])
+  assert int(got.npc_alive.sum()) == 8
+
+
+@pytest.mark.parametrize("fps,npc_target_speed", [(10, 30.0 / 3.6),
+                                                  (20, 5.0)])
+def test_make_params_fps_and_npc_speed_match(fps, npc_target_speed):
+  jt, tt = jax_load_town("Town02"), torch_load_town("Town02")
+  want = jsim.make_params(jt, fps=fps, npc_target_speed=npc_target_speed)
+  got = tsim.make_params(tt, fps=fps, npc_target_speed=npc_target_speed,
+                         device="cpu")
+  for name in ("dt", "npc_target_speed"):
+    value = getattr(got, name)
+    assert value.dtype == torch.float32, name
+    assert value.numpy() == np.asarray(getattr(want, name)), name
+  assert got.dt.numpy() == np.float32(1.0 / fps)
+
+
 def test_make_params_matches():
   jt, tt = jax_load_town("Town03"), torch_load_town("Town03")
   want = ttypes.world_params_from_numpy(
