@@ -58,7 +58,35 @@ Needs one CUDA card and the CUDA toolkit (nvcc).  It:
      ``EnvironmentLoop`` for 100 steps (one splat launch at reset and one
      a step), then the single-scene ``DIMAgent`` for 5 steps on the card
      and on the CPU (actions and ego-frame plans within 1e-3);
- 13. prints one JSON line of the kernels and, last, the ok/device line.
+ 13. holds packed collection on the card against the CPU:
+     ``collect_packed("Town02", ..., num_episodes=2, num_steps=120,
+     num_frame_skips=10, seed=21)`` on each (device packing), with the
+     splat's launches counted on the card (one a step); equal sample
+     counts, uint8 LIDAR within 1 count (pixels beyond it under 1e-4),
+     trajectories and locations within 1e-3;
+ 14. holds one update of the DIM, CIL and K = 2 RIP trainers on the card
+     against the CPU: the same seeded weights, batch of 8 (dense 64x64
+     LIDAR, models at 32x32) and threefry key, TF32 off: the loss within
+     1e-4 relative, the gradients within 1e-3 of each tensor's largest,
+     the card's Adam step within rtol 1e-4 / atol 1e-5 of the CPU Adam
+     applied to the card's gradients, and the updated parameters within
+     rtol 1e-4 / atol 1e-5 of the CPU's but where Adam's first step takes
+     the sign of a gradient below 1e-3 of its tensor's largest (at most
+     5e-4 of the elements);
+ 15. drives the training path at full width: ``collect_packed("Town01",
+     ..., num_episodes=64, num_steps=400, num_vehicles=16, noise=0.2,
+     seed=0)`` (24-scene chunks, 3 x 400 splat launches) and a breakdown
+     of one chunk (set-up, a step with the collected sensors, with the
+     LIDAR alone, with none, with none and no noise, the device packing),
+     then with the pack resident on the card DIM for 2 epochs (the last
+     epoch's mean NLL below the first's), CIL for 1 and RIP with K = 4 for
+     1, each at batch 512 and lr 1e-3, with the updates, the median ms of
+     an update on CUDA events and its split (forward, forward and
+     backward, the encoders' forward and backward), samples/s, the peak
+     memory, the epochs' losses, the val loss and the checkpoint; then
+     loads ``model-best.pt`` through ``benchmarks.run``'s loader into a
+     ``DIMAgent`` and takes one single-scene step on the card;
+ 16. prints one JSON line of the kernels and, last, the ok/device line.
 
 ``--prev-splat PATH`` (may be given more than once) names another design
 of the splat, a bev_splat.cu with the same C entry point
@@ -78,6 +106,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 STEPS = 256
@@ -109,6 +138,29 @@ RIP_MEMBERS = 4
 SINGLE_SCENE_TASK = "AbnormalTurns0-v0"
 SINGLE_SCENE_STEPS = 100
 DIM_AGENT_STEPS, DIM_AGENT_ATOL = 5, 1e-3
+
+# Collection on the card against the CPU (the JAX package's
+# tests/test_datasets_extra.py size) and its limits: uint8 counts, the
+# share of LIDAR values beyond one count, and metres.
+COLLECT_CHECK = dict(num_episodes=2, num_steps=120, num_frame_skips=10,
+                     seed=21)
+COLLECT_COUNT_ATOL, COLLECT_BEYOND_FRACTION, COLLECT_ATOL = 1, 1e-4, 1e-3
+# One trainer update on the card against the CPU: dense 64x64 LIDAR, the
+# models at 32x32 (well-conditioned GroupNorm groups), a batch of 8.
+UPDATE_SIZE, UPDATE_INPUT, UPDATE_BATCH = 64, (32, 32), 8
+UPDATE_LOSS_RTOL, UPDATE_RTOL, UPDATE_ATOL = 1e-4, 1e-4, 1e-5
+UPDATE_GRAD_SCALED, UPDATE_UNRESOLVED, UPDATE_UNRESOLVED_FRACTION = (
+    1e-3, 1e-3, 5e-4)
+# The training path at full width: the collection, then the trainers at
+# batch 512 with the pack resident on the card; updates timed for the
+# median ms of one.
+TRAIN_TOWN = "Town01"
+TRAIN_COLLECT = dict(num_episodes=64, num_steps=400, num_vehicles=16,
+                     noise=0.2, seed=0)
+TRAIN_BATCH, DIM_EPOCHS, TIMED_UPDATES = 512, 2, 7
+# Steps of each rollout of the collection's breakdown (past 20 + future 80
+# + 20: packing finds windows in them).
+COLLECT_BREAKDOWN_STEPS = 120
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bandwidth and
 # FP32 rate outside the tensor cores.
@@ -510,6 +562,357 @@ def check_dim_agent_card_against_cpu(device="cuda") -> None:
     fail("the DIM agent on the card disagrees with the CPU")
 
 
+def check_collect_card_against_cpu(workdir: str) -> None:
+  """Packed collection of COLLECT_CHECK on the CPU and on the card (device
+  packing); fails beyond the limits or when the card's collection did not
+  launch the splat once a step."""
+  import numpy as np  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.datasets.carla import CARLADataset  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import bev_cuda  # pylint: disable=import-outside-toplevel
+  dirs, counts = {}, {}
+  for dev in ("cpu", "cuda"):
+    dirs[dev] = os.path.join(workdir, "collect_check_" + dev)
+    bev_cuda.launches = 0
+    counts[dev] = CARLADataset.collect_packed("Town02", dirs[dev],
+                                              device=dev, device_pack=True,
+                                              **COLLECT_CHECK)
+  launches = bev_cuda.launches  # the card's collection ran last
+  load = lambda dev, key: np.load(os.path.join(dirs[dev], key + ".npy"))  # pylint: disable=unnecessary-lambda-assignment
+  lidar = np.abs(load("cpu", "lidar").astype(int) -
+                 load("cuda", "lidar").astype(int))
+  beyond = float((lidar > COLLECT_COUNT_ATOL).mean())
+  errs = {key: float(np.abs(load("cpu", key) - load("cuda", key)).max())
+          for key in ("player_past", "player_future", "location")}
+  print("check collect_packed card vs cpu (Town02, {}): samples {} / {}; "
+        "lidar max count diff {} (share beyond {}: {}, limit {}); {} (limit "
+        "{} m); bev_splat launches on the card {} for {} steps".format(
+            COLLECT_CHECK, counts["cpu"], counts["cuda"], int(lidar.max()),
+            COLLECT_COUNT_ATOL, beyond, COLLECT_BEYOND_FRACTION,
+            " ".join("{}_max_abs_diff={}".format(k, v)
+                     for k, v in errs.items()), COLLECT_ATOL, launches,
+            COLLECT_CHECK["num_steps"]))
+  if counts["cpu"] != counts["cuda"] or not counts["cpu"]:
+    fail("the card's collection gave {} samples, the CPU's {}".format(
+        counts["cuda"], counts["cpu"]))
+  if beyond >= COLLECT_BEYOND_FRACTION or max(errs.values()) > COLLECT_ATOL:
+    fail("the card's packed collection disagrees with the CPU's")
+  if launches != COLLECT_CHECK["num_steps"]:
+    fail("bev_splat launched {} times in a {}-step collection".format(
+        launches, COLLECT_CHECK["num_steps"]))
+
+
+def update_batch():
+  """A packed-format batch of UPDATE_BATCH: dense uint8 LIDAR,
+  forward-moving futures, some stopped scenes."""
+  import numpy as np  # pylint: disable=import-outside-toplevel
+  rs = np.random.RandomState(1)
+  b = UPDATE_BATCH
+  speed = rs.uniform(0, 8, (b, 1)) * (rs.uniform(size=(b, 1)) < 0.8)
+  steps = np.cumsum(rs.uniform(0.5, 1.5, (b, 80, 3)) * [0.1, 0.02, 0],
+                    axis=1) * np.maximum(speed, 0.05)[:, :, None]
+  return dict(
+      lidar=rs.randint(0, 256, (b, UPDATE_SIZE, UPDATE_SIZE, 2)).astype(
+          np.uint8),
+      is_at_traffic_light=rs.randint(0, 2, (b, 1)).astype(np.float32),
+      traffic_light_state=rs.randint(0, 3, (b, 1)).astype(np.float32),
+      velocity=np.concatenate([speed, rs.normal(0, 0.3, (b, 1)),
+                               np.zeros((b, 1))], -1).astype(np.float32),
+      player_future=steps.astype(np.float32))
+
+
+def check_updates_card_against_cpu() -> None:
+  """One update of each trainer's loss on the CPU and on the card from the
+  same weights, batch and key; fails beyond the limits."""
+  import torch  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch import rng as rng_lib  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.baselines.learned.cil import train as cil_train  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.baselines.learned.dim import train as dim_train  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.baselines.learned.rip import train as rip_train  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.models import BehaviouralModel, ImitativeModel  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.parallel import dp  # pylint: disable=import-outside-toplevel
+
+  def gen(k=0):
+    return torch.Generator().manual_seed(k)
+
+  trainers = {
+      "dim": (lambda dev: ImitativeModel((4, 2), UPDATE_INPUT, generator=gen(),
+                                         device=dev),
+              dim_train.make_loss_fn()),
+      "cil": (lambda dev: BehaviouralModel((40, 2), UPDATE_INPUT,
+                                           generator=gen(), device=dev),
+              cil_train.make_loss_fn()),
+      "rip K=2": (lambda dev: torch.nn.ModuleList([
+          ImitativeModel((4, 2), UPDATE_INPUT, generator=gen(k), device=dev)
+          for k in range(2)]), rip_train.make_loss_fn(2)),
+  }
+  batch = update_batch()
+  for name, (make, loss_fn) in trainers.items():
+    out = {}
+    for dev in ("cpu", "cuda"):
+      key = rng_lib.fold_in(rng_lib.PRNGKey(42, dev), 1)
+      probe = make(dev)
+      loss_fn(probe, batch, rng_lib.split(key)[1]).backward()
+      grads = {k: p.grad.cpu() for k, p in probe.named_parameters()}
+      model = make(dev)
+      state = dp.TrainState.create(model, dp.adam(model, 1e-3), key)
+      state, loss = dp.make_update_fn(loss_fn)(state, batch)
+      out[dev] = (float(loss), grads,
+                  {k: v.cpu() for k, v in model.state_dict().items()})
+    # The CPU's Adam on the card's gradients, from the same weights.
+    ref = make("cpu")
+    ref_opt = dp.adam(ref, 1e-3)
+    for k, p in ref.named_parameters():
+      p.grad = out["cuda"][1][k].clone()
+    ref_opt.step()
+    ref_sd = ref.state_dict()
+    (loss_c, g_c, sd_c), (loss_g, g_g, sd_g) = out["cpu"], out["cuda"]
+    grad_err = max(float((g_g[k] - g_c[k]).abs().max() /
+                         g_c[k].abs().max().clamp_min(1e-30)) for k in g_c)
+    step_ok = all(torch.allclose(sd_g[k], ref_sd[k], rtol=UPDATE_RTOL,
+                                 atol=UPDATE_ATOL) for k in sd_g)
+    excluded = total = 0
+    resolved_ok = True
+    for k in g_c:
+      off = ~torch.isclose(sd_g[k], sd_c[k], rtol=UPDATE_RTOL,
+                           atol=UPDATE_ATOL)
+      unresolved = g_c[k].abs() < UPDATE_UNRESOLVED * g_c[k].abs().max()
+      resolved_ok &= not bool((off & ~unresolved).any())
+      excluded += int(off.sum())
+      total += off.numel()
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    print("check {} update card vs cpu (batch {}, {}x{} LIDAR, input {}): "
+          "loss {} / {} rel diff {} (limit {}); grads max scaled diff {} "
+          "(limit {}); card step vs CPU Adam on its grads within rtol {} / "
+          "atol {}: {}; updated params beyond rtol {} / atol {}: {} of {} "
+          "elements, all with |g| below {} of their tensor's largest: {} "
+          "(limit {} of the elements)".format(
+              name, UPDATE_BATCH, UPDATE_SIZE, UPDATE_SIZE, UPDATE_INPUT,
+              loss_c, loss_g, loss_err, UPDATE_LOSS_RTOL, grad_err,
+              UPDATE_GRAD_SCALED, UPDATE_RTOL, UPDATE_ATOL, step_ok,
+              UPDATE_RTOL, UPDATE_ATOL, excluded, total, UPDATE_UNRESOLVED,
+              resolved_ok, UPDATE_UNRESOLVED_FRACTION))
+    if (loss_err > UPDATE_LOSS_RTOL or grad_err > UPDATE_GRAD_SCALED or
+        not step_ok or not resolved_ok or
+        excluded > UPDATE_UNRESOLVED_FRACTION * total):
+      fail("one {} update on the card disagrees with the CPU".format(name))
+
+
+def read_log(path: str) -> list:
+  with open(path) as fp:
+    return [json.loads(line) for line in fp]
+
+
+def event_ms(fn) -> float:
+  """Median ms of one call of ``fn()`` on CUDA events over TIMED_UPDATES
+  calls (after one untimed)."""
+  import torch  # pylint: disable=import-outside-toplevel
+  fn()
+  times = []
+  for _ in range(TIMED_UPDATES):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    times.append(start.elapsed_time(end))
+  return statistics.median(times)
+
+
+def update_split_ms(loss_fn, model, batch) -> dict:
+  """Median ms (``event_ms``) of one whole update of ``model`` on
+  ``batch``, of the loss's forward alone, of its forward and backward, and
+  of the forward and backward of the MobileNetV2 encoders alone (one, or
+  one per member of an ensemble) on the batch's resized LIDAR."""
+  import torch  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch import rng as rng_lib  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.baselines.learned.dim import train as dim_train  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.parallel import dp  # pylint: disable=import-outside-toplevel
+  members = model if isinstance(model, torch.nn.ModuleList) else [model]
+  state = dp.TrainState.create(model, dp.adam(model, 1e-3),
+                               rng_lib.PRNGKey(7, "cuda"))
+  update = dp.make_update_fn(loss_fn)
+  key = rng_lib.PRNGKey(0, "cuda")
+  params = [p for p in model.parameters() if p.requires_grad]
+  images = members[0].transform(dim_train.as_device_batch(
+      batch, "cuda"))["visual_features"]
+  encoder_params = [p for m in members for p in m.encoder.parameters()]
+
+  def encoders_backward():
+    out = sum(m.encoder(images).sum() for m in members)
+    return torch.autograd.grad(out, encoder_params)
+
+  return {
+      "update": event_ms(lambda: update(state, batch)),
+      "forward": event_ms(lambda: loss_fn(model, batch, key)),
+      "forward_backward": event_ms(lambda: torch.autograd.grad(
+          loss_fn(model, batch, key), params)),
+      "encoder_forward_backward": event_ms(encoders_backward),
+  }
+
+
+def collect_breakdown() -> None:
+  """Where a chunk of the full-width collection spends its time: one
+  24-scene chunk of TRAIN_COLLECT's town, traffic and noise, set up, then
+  COLLECT_BREAKDOWN_STEPS steps collecting ``collect_packed``'s sensors,
+  as many computing the LIDAR alone, as many with no sensor and as many
+  with no sensor and a noiseless autopilot (host wall time, each ended by
+  a fetch), then the device packing of the collected steps with their
+  fetch."""
+  import inspect  # pylint: disable=import-outside-toplevel
+  import torch  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.datasets import carla  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.envs.batched import BatchedEnv  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.sim import autopilot_policy  # pylint: disable=import-outside-toplevel
+  modalities = inspect.signature(
+      carla.CARLADataset.collect_packed).parameters["modalities"].default
+  sensors = tuple(sorted(set(modalities) | {"location", "rotation",
+                                            "collision"}))
+  t0 = time.perf_counter()
+  env = BatchedEnv(TRAIN_TOWN, 24, sensors=sensors,
+                   num_vehicles=TRAIN_COLLECT["num_vehicles"], seed=0,
+                   auto_reset=False, device="cuda")
+  torch.cuda.synchronize()
+  setup_s = time.perf_counter() - t0
+
+  def policy(params, states):
+    return autopilot_policy(params, states, noise=TRAIN_COLLECT["noise"])
+
+  def step_ms(**kwargs):
+    t0 = time.perf_counter()
+    _, out, stats = env.rollout(COLLECT_BREAKDOWN_STEPS, **kwargs)
+    float(stats["distance"].sum())
+    return 1e3 * (time.perf_counter() - t0) / COLLECT_BREAKDOWN_STEPS, out
+
+  collect_ms, collected = step_ms(policy=policy, collect=sensors)
+  lidar_ms, _ = step_ms(policy=policy, compute=("lidar",))
+  bare_ms, _ = step_ms(policy=policy)
+  noiseless_ms, _ = step_ms()
+  t0 = time.perf_counter()
+  packed = carla._device_pack_windows(collected, modalities, 20, 80, 5)  # pylint: disable=protected-access
+  {k: v.cpu() for k, v in packed.items()}  # pylint: disable=expression-not-assigned
+  pack_ms = 1e3 * (time.perf_counter() - t0)
+  print("training path collection breakdown (one 24-scene chunk, {} "
+        "NPCs, noise {}): set-up {:.3f}s; a step {:.3f} ms collecting {} "
+        "sensors, {:.3f} ms with the LIDAR alone, {:.3f} ms with none, "
+        "{:.3f} ms with none and the autopilot's noise at 0 (host wall time "
+        "over {} steps each); device packing of {} steps and its fetch "
+        "{:.3f} ms".format(
+            TRAIN_COLLECT["num_vehicles"], TRAIN_COLLECT["noise"], setup_s,
+            collect_ms, len(sensors), lidar_ms, bare_ms, noiseless_ms,
+            COLLECT_BREAKDOWN_STEPS, COLLECT_BREAKDOWN_STEPS, pack_ms))
+
+
+def drive_training_path(workdir: str) -> int:
+  """Collection and the three trainers at full width on the card; returns
+  the splat's launches in the collection."""
+  import numpy as np  # pylint: disable=import-outside-toplevel
+  import torch  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.baselines.learned import DIMAgent  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.baselines.learned.cil import train as cil_train  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.baselines.learned.dim import train as dim_train  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.baselines.learned.rip import train as rip_train  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.benchmarks import run as run_cli  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.benchmarks.carnovel.benchmark import CARNOVEL  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.datasets.carla import CARLADataset  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import bev_cuda  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.parallel import dp  # pylint: disable=import-outside-toplevel
+
+  pack = os.path.join(workdir, "pack")
+  bev_cuda.launches = 0
+  t0 = time.perf_counter()
+  samples = CARLADataset.collect_packed(TRAIN_TOWN, pack, device="cuda",
+                                        **TRAIN_COLLECT)
+  seconds = time.perf_counter() - t0
+  launches = bev_cuda.launches
+  nbytes = sum(os.path.getsize(os.path.join(pack, f))
+               for f in os.listdir(pack))
+  env_steps = TRAIN_COLLECT["num_episodes"] * TRAIN_COLLECT["num_steps"]
+  chunks = -(-TRAIN_COLLECT["num_episodes"] // 24)
+  print("training path collect_packed {} {}: {} samples in {:.3f}s = "
+        "{:.1f} env steps/s; bev_splat launches={} ({} chunks x {} steps); "
+        "pack {} bytes".format(TRAIN_TOWN, TRAIN_COLLECT, samples, seconds,
+                               env_steps / seconds, launches, chunks,
+                               TRAIN_COLLECT["num_steps"], nbytes))
+  if launches != chunks * TRAIN_COLLECT["num_steps"]:
+    fail("bev_splat launched {} times in {} chunks of {} steps".format(
+        launches, chunks, TRAIN_COLLECT["num_steps"]))
+  if samples < TRAIN_BATCH:
+    fail("the collection gave {} samples, fewer than a batch".format(samples))
+  collect_breakdown()
+
+  resident, _ = CARLADataset.load_packed_to_device(
+      pack, dim_train.MODALITIES, device="cuda")
+  batch = {k: v[:TRAIN_BATCH] for k, v in resident.items()}
+  runs = (
+      ("dim", lambda out: dim_train.train(
+          pack, out, batch_size=TRAIN_BATCH, num_epochs=DIM_EPOCHS,
+          device="cuda"), "dim_train", "model-best.pt",
+       dim_train.make_loss_fn()),
+      ("cil", lambda out: cil_train.train(
+          pack, out, batch_size=TRAIN_BATCH, num_epochs=1, device="cuda"),
+       "cil_train", "model-best.pt", cil_train.make_loss_fn()),
+      ("rip K={}".format(RIP_MEMBERS), lambda out: rip_train.train(
+          pack, out, num_models=RIP_MEMBERS, batch_size=TRAIN_BATCH,
+          num_epochs=1, device="cuda"), "rip_train", "ensemble-best.pt",
+       rip_train.make_loss_fn(RIP_MEMBERS)),
+  )
+  for name, run, log, best, loss_fn in runs:
+    out = os.path.join(workdir, name.split()[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trained = run(out)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    records = read_log(os.path.join(out, "logs", log + ".jsonl"))
+    model = trained.model if isinstance(trained, dp.TrainState) else trained
+    split = update_split_ms(loss_fn, model, batch)
+    ms = split["update"]
+    losses = [r["loss"] for r in records]
+    ckpt = os.path.join(out, "ckpts", best)
+    print("training path {}: {} epochs, {} updates at batch {} in {:.3f}s "
+          "(val included); update median {:.3f} ms on CUDA events ({} "
+          "timed) = {:.1f} samples/s; max_memory_allocated {} bytes; epoch "
+          "losses {}; val loss {}; checkpoint {} ({} bytes)".format(
+              name, len(records), records[-1]["steps"], TRAIN_BATCH, seconds,
+              ms, TIMED_UPDATES, 1e3 * TRAIN_BATCH / ms, peak, losses,
+              records[-1].get("val_loss"), os.path.relpath(ckpt, workdir),
+              os.path.getsize(ckpt) if os.path.exists(ckpt) else None))
+    print("training path {} update split at batch {} (CUDA events, median "
+          "of {}): forward {:.3f} ms, forward and backward {:.3f} ms, the "
+          "optimiser and the rest {:.3f} ms; the encoders' forward and "
+          "backward alone {:.3f} ms".format(
+              name, TRAIN_BATCH, TIMED_UPDATES, split["forward"],
+              split["forward_backward"], ms - split["forward_backward"],
+              split["encoder_forward_backward"]))
+    if not np.isfinite(losses).all() or not os.path.exists(ckpt):
+      fail("the {} trainer's losses are not finite or it wrote no "
+           "best checkpoint".format(name))
+    if name == "dim" and not losses[-1] < losses[0]:
+      fail("DIM's mean NLL did not fall over {} epochs: {}".format(
+          DIM_EPOCHS, losses))
+  del resident, batch
+
+  args = argparse.Namespace(agent="dim", ckpt=os.path.join(
+      workdir, "dim", "ckpts", "model-best.pt"), device="cuda", cpu=False)
+  agent_fn = run_cli.make_agent_fn(args)
+  env = CARNOVEL(device="cuda").load(SINGLE_SCENE_TASK)
+  env.seed(0)
+  obs = env.reset()
+  agent = agent_fn(env)
+  action = agent.act(obs)
+  obs, _, _, _ = env.step(action)
+  env.close()
+  values = action.as_array()
+  print("training path: model-best.pt through benchmarks.run's loader into "
+        "a DIMAgent, one single-scene step of {} on the card: action "
+        "{}".format(SINGLE_SCENE_TASK, np.round(values, 4).tolist()))
+  if not np.isfinite(values).all():
+    fail("the trained DIM agent's action is not finite")
+  return launches
+
+
 def main() -> None:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--prev-splat", action="append", default=[],
@@ -700,6 +1103,14 @@ def main() -> None:
   launches_single = drive_single_scene()
   check_dim_agent_card_against_cpu()
 
+  # -- 12. Collection and trainer updates on the card against the CPU ---------
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+    check_collect_card_against_cpu(workdir)
+    check_updates_card_against_cpu()
+
+    # -- 13. The training path at full width -----------------------------------
+    launches_collect = drive_training_path(workdir)
+
   kernels = [{
       "name": "bev_splat",
       "status": "ported",
@@ -710,6 +1121,7 @@ def main() -> None:
       "launches_dim": launches_dim,
       "launches_eval_rip": sum(rip_launches.values()),
       "launches_single_scene": launches_single,
+      "launches_collect": launches_collect,
       "max_abs_err": max_abs_err,
       "ms": ms,
       "plain_ms": plain_ms,

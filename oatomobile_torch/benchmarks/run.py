@@ -6,20 +6,32 @@ Evaluates an agent on CARNOVEL or CoRL2017 through the single-scene API
 
 Run:  python -m oatomobile_torch.benchmarks.run \\
           --benchmark carnovel --agent autopilot --log_dir /tmp/eval \\
-          [--subtasks AbnormalTurns] [--device cuda | --cpu]
+          [--subtasks AbnormalTurns] [--ckpt ... | --ckpts a b c d] \\
+          [--device cuda | --cpu]
 
-``--agent autopilot|blind`` run.  ``dim``, ``cil`` and ``rip`` need their
-``.flax`` checkpoints, and the port has no loader for them yet (the
-checkpoint utilities come with training): they raise
-``NotImplementedError``.
+``--agent dim|cil`` load one checkpoint (``--ckpt``), ``--agent rip`` one
+DIM checkpoint per member (``--ckpts``): the port's ``.pt`` files (a
+``state_dict``, e.g. ``ckpts/model-best.pt`` of the trainers) or the JAX
+package's ``.flax`` files (read without flax, converted by
+``models.convert``).  The models take the trainers' and the JAX CLI's
+shapes: DIM ``(4, 2)``, CIL ``(40, 2)``.
 """
 
 import argparse
 import functools
 
-_NO_CHECKPOINT_LOADER = (
-    "--agent {} needs a .flax checkpoint, and oatomobile_torch has no "
-    "checkpoint loader yet (utils/checkpoint.py comes with training)")
+
+def device_of(args) -> str:
+  return "cpu" if getattr(args, "cpu", False) else args.device
+
+
+def _load_dim(ckpt_path: str, device):
+  """An ``ImitativeModel((4, 2))`` on ``device`` with the weights of a
+  ``.pt`` or ``.flax`` checkpoint."""
+  from oatomobile_torch.models.dim import ImitativeModel  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.utils.checkpoint import read_params  # pylint: disable=import-outside-toplevel
+  return read_params(ckpt_path, ImitativeModel(output_shape=(4, 2),
+                                               device=device))
 
 
 def make_agent_fn(args):
@@ -29,8 +41,28 @@ def make_agent_fn(args):
   if args.agent == "blind":
     from oatomobile_torch.baselines.rulebased import BlindAgent  # pylint: disable=import-outside-toplevel
     return BlindAgent
-  if args.agent in ("dim", "cil", "rip"):
-    raise NotImplementedError(_NO_CHECKPOINT_LOADER.format(args.agent))
+  flag, value = (("--ckpts", args.ckpts) if args.agent == "rip" else
+                 ("--ckpt", args.ckpt))
+  if not value:
+    raise ValueError("--agent {} needs a checkpoint: {} PATH (.pt or "
+                     ".flax)".format(args.agent, flag))
+  device = device_of(args)
+  if args.agent == "dim":
+    from oatomobile_torch.baselines.learned.dim import DIMAgent  # pylint: disable=import-outside-toplevel
+    return functools.partial(DIMAgent, model=_load_dim(args.ckpt, device))
+  if args.agent == "cil":
+    # pylint: disable=import-outside-toplevel
+    from oatomobile_torch.baselines.learned.cil import (BehaviouralModel,
+                                                        CILAgent)
+    from oatomobile_torch.utils.checkpoint import read_params
+    model = read_params(args.ckpt, BehaviouralModel(output_shape=(40, 2),
+                                                    device=device))
+    return functools.partial(CILAgent, model=model)
+  if args.agent == "rip":
+    from oatomobile_torch.baselines.learned.rip import RIPAgent  # pylint: disable=import-outside-toplevel
+    return functools.partial(RIPAgent, algorithm=args.algorithm,
+                             models=[_load_dim(c, device)
+                                     for c in args.ckpts])
   raise ValueError("unknown agent {}".format(args.agent))
 
 
@@ -54,7 +86,7 @@ def main(argv=None) -> None:
   parser.add_argument("--cpu", action="store_true",
                       help="run on the CPU (same as --device cpu)")
   args = parser.parse_args(argv)
-  device = "cpu" if args.cpu else args.device
+  device = device_of(args)
 
   agent_fn = make_agent_fn(args)
   if args.benchmark == "carnovel":

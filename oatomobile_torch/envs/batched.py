@@ -5,7 +5,7 @@ Port of the JAX package's ``envs/batched.py``.  Where the JAX class
 batch on a device mesh, this class steps a ``[B, ...]`` scene batch with
 a Python loop over time on one ``device``.  Done scenes are reset on the
 device from their initial state, with a fresh key folded from the live
-one.
+one (unless ``auto_reset=False``, as the collection pipeline asks).
 """
 
 from typing import Callable, Dict, Optional, Sequence, Tuple
@@ -20,6 +20,7 @@ from oatomobile_torch.sim import (autopilot_policy, init_scene_batch,
                                   make_params, world_step)
 from oatomobile_torch.sim.types import SceneState, map_state
 from oatomobile_torch.sim.util import norm
+from oatomobile_torch.sim.world import SIMULATOR_FPS
 
 
 class BatchedEnv:
@@ -32,21 +33,38 @@ class BatchedEnv:
       sensors: Sequence[str] = synth.STATE_SENSORS,
       num_vehicles: int = 0,
       num_pedestrians: int = 0,
+      fps: int = SIMULATOR_FPS,
       max_episode_steps: int = 1500,
       route_capacity: int = 512,
+      route_pool: Optional[int] = None,
       seed: int = 0,
+      mesh=None,
+      auto_reset: bool = True,
       device="cuda",
   ) -> None:
     """Args:
+      route_pool: unused, kept for the JAX package's signature (the
+        batched route planner makes per-scene routes).
+      mesh: must be None: placing the scenes over several cards is not
+        ported yet.
+      auto_reset: reset done scenes from their initial state after each
+        step; ``False`` leaves them where they ended (collection cuts its
+        windows before the first collision).
       device: where the scenes live; ``"cuda"`` unless the caller asks for
         ``"cpu"``.  Raises when it names CUDA and no card is present.
     """
+    del route_pool
+    if mesh is not None:
+      raise NotImplementedError(
+          "BatchedEnv(mesh=...): scenes over a device mesh are not ported "
+          "to oatomobile_torch yet (one device only)")
     self._device = device_lib.resolve(device)
     self._town = load_town(town)
-    self._params = make_params(self._town, device=self._device)
+    self._params = make_params(self._town, fps=fps, device=self._device)
     self._batch_size = int(batch_size)
     self._sensors = tuple(sorted(set(sensors)))
     self._max_episode_steps = int(max_episode_steps)
+    self._auto_reset = auto_reset
 
     self._initial = init_scene_batch(
         self._town,
@@ -92,7 +110,10 @@ class BatchedEnv:
     """On-device auto-reset: scenes flagged done restart from their initial
     state with a fresh RNG stream, folded from the LIVE key so that reset
     streams chain (folding from the initial key would replay one episode
-    forever for scenes whose episodes always end at the same step)."""
+    forever for scenes whose episodes always end at the same step).  The
+    state as it is without ``auto_reset``."""
+    if not self._auto_reset:
+      return state
     fresh = rng_lib.fold_in(state.rng, state.step)
 
     def pick(init_leaf, live_leaf):
@@ -125,6 +146,7 @@ class BatchedEnv:
       policy: Optional[Callable] = None,
       collect: Sequence[str] = (),
       compute: Sequence[str] = (),
+      collect_transform: Optional[Callable] = None,
   ):
     """Closed-loop rollout on the device: a loop over time of
     (policy -> step -> auto-reset); nothing is fetched to the host.
@@ -138,6 +160,10 @@ class BatchedEnv:
       compute: observation keys synthesised every step but not stored;
         their per-scene sum feeds ``stats["obs_checksum"]``, so a
         throughput run really computes them.
+      collect_transform: optional fn applied to each step's obs dict
+        before it is stacked over time, e.g. a resize and uint8
+        quantisation of the images so that the [T, B, ...] stack stays
+        small.
 
     Returns:
       (final_state, collected dict (or () when nothing is collected),
@@ -170,6 +196,8 @@ class BatchedEnv:
       stats["distance"] += norm(new_state.hero_xy - state.hero_xy)
       if collect:
         obs = synth.synthesize(self._params, new_state, tuple(collect))
+        if collect_transform is not None:
+          obs = collect_transform(obs)
         for key, value in obs.items():
           collected[key].append(value)
       state = self._reset_where_done(new_state, done)

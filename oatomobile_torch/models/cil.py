@@ -17,6 +17,7 @@ from oatomobile_torch.models import initializers, transforms
 from oatomobile_torch.models.dim import CONTEXT_KEYS, check_context
 from oatomobile_torch.models.mlp import MLP
 from oatomobile_torch.models.perception import MobileNetV2
+from oatomobile_torch.models.sequence import GRUCell
 
 
 class BehaviouralModel(nn.Module):
@@ -36,7 +37,7 @@ class BehaviouralModel(nn.Module):
                                device="meta")
     self.merger = MLP(128 + 3 + 1 + 1 + 1, (64, 64, 64), activate_final=True,
                       device="meta")
-    self.gru = nn.GRUCell(self.output_shape[-1], 64, device="meta")
+    self.gru = GRUCell(self.output_shape[-1], 64, device="meta")
     self.output = nn.Linear(64, self.output_shape[-1], device="meta")
     initializers.materialize(self, generator, device)
 

@@ -14,7 +14,8 @@ Layouts:
 - GroupNorm ``scale`` -> ``weight``; ``bias`` as is;
 - GRUCell (denses ``ir, iz, in`` with biases, ``hr, hz`` without, ``hn``
   with) -> ``weight_ih = cat[ir, iz, in].T``, ``bias_ih = cat[b_ir, b_iz,
-  b_in]``, ``weight_hh = cat[hr, hz, hn].T``, ``bias_hh = cat[0, 0, b_hn]``.
+  b_in]``, ``weight_hh = cat[hr, hz, hn].T``, ``bias_hn = b_hn``
+  (``models.sequence.GRUCell``: flax's parameters, no more).
 
 Needs numpy only: no jax.
 """
@@ -43,15 +44,13 @@ def _gru(node: Mapping, prefix: str, out: Dict[str, torch.Tensor]) -> int:
   for gate in ("ir", "iz", "in", "hn"):
     if set(node[gate]) != {"kernel", "bias"}:
       raise ValueError("{}.{}: expected kernel and bias".format(prefix, gate))
-  hidden = np.asarray(node["hn"]["bias"]).shape[0]
   kernels = lambda gates: np.concatenate(  # pylint: disable=unnecessary-lambda-assignment
       [np.asarray(node[g]["kernel"]) for g in gates], axis=1).T
   out[prefix + "weight_ih"] = _tensor(kernels(("ir", "iz", "in")))
   out[prefix + "weight_hh"] = _tensor(kernels(("hr", "hz", "hn")))
   out[prefix + "bias_ih"] = _tensor(np.concatenate(
       [np.asarray(node[g]["bias"]) for g in ("ir", "iz", "in")]))
-  out[prefix + "bias_hh"] = _tensor(np.concatenate(
-      [np.zeros(2 * hidden, np.float32), np.asarray(node["hn"]["bias"])]))
+  out[prefix + "bias_hn"] = _tensor(node["hn"]["bias"])
   return 10
 
 

@@ -52,6 +52,7 @@ def materialize(module: nn.Module, generator: Optional[torch.Generator],
   seeded 0 when None), and moves the module to ``device``.  A ``meta``
   ``device`` leaves the module unmaterialised: an enclosing module does it.
   """
+  from oatomobile_torch.models.sequence import GRUCell  # pylint: disable=import-outside-toplevel
   if device.type == "meta":
     return
   if generator is None:
@@ -70,7 +71,7 @@ def materialize(module: nn.Module, generator: Optional[torch.Generator],
     elif isinstance(m, nn.GroupNorm):
       m.weight.fill_(1.0)
       m.bias.zero_()
-    elif isinstance(m, nn.GRUCell):
+    elif isinstance(m, GRUCell):
       # Gates (r, z, n) as flax draws them: one input kernel and one
       # recurrent kernel each.
       h = m.hidden_size
@@ -80,5 +81,5 @@ def materialize(module: nn.Module, generator: Optional[torch.Generator],
                                          generator)
         m.weight_hh[rows] = orthogonal(h, generator)
       m.bias_ih.zero_()
-      m.bias_hh.zero_()
+      m.bias_hn.zero_()
   module.to(device)

@@ -9,9 +9,10 @@ T = 4 decode steps:
     scale_t  = softplus(head(z_t)[2:]) + 1e-3
     logabsdet = sum_t sum_d log scale_td     (both directions)
 
-flax's ``GRUCell(carry, inputs)`` is ``torch.nn.GRUCell(inputs, carry)``:
-the same gates, with the biases of flax's ``hr`` and ``hz`` denses (which
-have none) held at 0 in ``bias_hh``.
+flax's ``GRUCell(carry, inputs)`` is ``GRUCell(inputs, carry)`` here: the
+same gates and exactly flax's parameters.  ``torch.nn.GRUCell`` would hold
+trainable hidden biases for the r and z gates, which flax's ``hr`` and
+``hz`` denses do not have: an optimiser step would move them.
 """
 
 from typing import Optional, Tuple
@@ -29,6 +30,34 @@ from oatomobile_torch.models.mlp import MLP
 LOG_2PI = float(np.log(np.float32(2.0 * np.pi)))
 
 
+class GRUCell(nn.Module):
+  """flax's ``GRUCell`` with torch's gate layout: input kernels ``weight_ih``
+  ``[3H, D]`` (r, z, n) with biases ``bias_ih`` ``[3H]``, recurrent kernels
+  ``weight_hh`` ``[3H, H]``, and one recurrent bias ``bias_hn`` ``[H]``, of
+  the n gate only.  Computed by ``torch.gru_cell`` (fused on the card)
+  with the r and z hidden biases fixed at 0."""
+
+  def __init__(self, input_size: int, hidden_size: int, device=None) -> None:
+    super().__init__()
+    self.input_size, self.hidden_size = input_size, hidden_size
+    h = hidden_size
+    self.weight_ih = nn.Parameter(torch.empty(3 * h, input_size,
+                                              device=device))
+    self.bias_ih = nn.Parameter(torch.empty(3 * h, device=device))
+    self.weight_hh = nn.Parameter(torch.empty(3 * h, h, device=device))
+    self.bias_hn = nn.Parameter(torch.empty(h, device=device))
+
+  @property
+  def bias_hh(self) -> torch.Tensor:
+    """``[3H]`` hidden biases as ``torch.nn.GRUCell`` lays them out: 0 for
+    r and z, ``bias_hn`` for n."""
+    return F.pad(self.bias_hn, (2 * self.hidden_size, 0))
+
+  def forward(self, inputs: torch.Tensor, carry: torch.Tensor) -> torch.Tensor:
+    return torch.gru_cell(inputs, carry, self.weight_ih, self.weight_hh,
+                          self.bias_ih, self.bias_hh)
+
+
 class AutoregressiveFlow(nn.Module):
   """An autoregressive flow-based sequence generator."""
 
@@ -42,7 +71,7 @@ class AutoregressiveFlow(nn.Module):
     device = device_lib.resolve(device)
     self.output_shape = tuple(output_shape)
     d = self.output_shape[-1]
-    self.gru = nn.GRUCell(d, hidden_size, device="meta")
+    self.gru = GRUCell(d, hidden_size, device="meta")
     # Head: (dloc [D], raw_scale [D]).
     self.locscale = MLP(hidden_size, (32, 2 * d), device="meta")
     initializers.materialize(self, generator, device)

@@ -1,6 +1,11 @@
-"""Coordinate transforms between world and ego (local) frames, host-side
-numpy: the numpy half of the JAX package's ``ops/transforms.py``
-(``np_world2local``, ``np_local2world`` and what they call).
+"""Coordinate transforms between world and ego (local) frames: the port of
+the JAX package's ``ops/transforms.py``.
+
+``world2local``, ``local2world`` and ``rot2mat`` take numpy arrays or torch
+tensors: given a tensor they compute in torch on its device (the
+counterpart of the JAX functions with ``xp=jnp``), otherwise in numpy (with
+``xp=np``).  ``np_world2local`` and ``np_local2world`` are the host-side
+float64 twins.
 
 Rotations are CARLA ``(pitch, yaw, roll)`` triplets in *degrees*;
 ``rot2mat(rotation) = euler2mat(roll, pitch, yaw).T`` in the static-xyz
@@ -11,25 +16,40 @@ convention, i.e. ``(Rz(yaw) @ Ry(pitch) @ Rx(roll)).T``, and
 """
 
 import numpy as np
+import torch
+
+
+def _is_torch(*values) -> bool:
+  return any(isinstance(v, torch.Tensor) for v in values)
+
+
+def _stack(xs, axis: int):
+  if _is_torch(*xs):
+    return torch.stack(xs, dim=axis)
+  return np.stack(xs, axis=axis)
 
 
 def _euler_zyx(roll, pitch, yaw):
   """Rz(yaw) @ Ry(pitch) @ Rx(roll) (static xyz convention), stacked."""
-  cr, sr = np.cos(roll), np.sin(roll)
-  cp, sp = np.cos(pitch), np.sin(pitch)
-  cy, sy = np.cos(yaw), np.sin(yaw)
-  row0 = np.stack([cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr],
-                  axis=-1)
-  row1 = np.stack([sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr],
-                  axis=-1)
-  row2 = np.stack([-sp, cp * sr, cp * cr], axis=-1)
-  return np.stack([row0, row1, row2], axis=-2)
+  xp = torch if _is_torch(roll) else np
+  cr, sr = xp.cos(roll), xp.sin(roll)
+  cp, sp = xp.cos(pitch), xp.sin(pitch)
+  cy, sy = xp.cos(yaw), xp.sin(yaw)
+  row0 = _stack([cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr],
+                -1)
+  row1 = _stack([sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr],
+                -1)
+  row2 = _stack([-sp, cp * sr, cp * cr], -1)
+  return _stack([row0, row1, row2], -2)
 
 
-def rot2mat(rotation) -> np.ndarray:
+def rot2mat(rotation):
   """``[..., 3, 3]`` world->local rotation matrices of ``[..., 3]`` CARLA
   rotations (pitch, yaw, roll) in degrees: ``euler2mat(roll, pitch,
   yaw).T``."""
+  if _is_torch(rotation):
+    pitch, yaw, roll = torch.deg2rad(rotation).unbind(-1)
+    return _euler_zyx(roll, pitch, yaw).transpose(-1, -2)
   rotation = np.asarray(rotation)
   pitch = np.deg2rad(rotation[..., 0])
   yaw = np.deg2rad(rotation[..., 1])
@@ -37,35 +57,41 @@ def rot2mat(rotation) -> np.ndarray:
   return np.swapaxes(_euler_zyx(roll, pitch, yaw), -1, -2)
 
 
-def world2local(*, current_location, current_rotation,
-                world_locations) -> np.ndarray:
+def _einsum(equation: str, *operands):
+  if _is_torch(*operands):
+    return torch.einsum(equation, *operands)
+  return np.einsum(equation, *operands)
+
+
+def world2local(*, current_location, current_rotation, world_locations):
   """``world_locations`` (``[..., N, 3]`` or ``[..., 3]``) in the ego frame
   of ``current_location`` ``[..., 3]`` and ``current_rotation``
   ``[..., 3]`` (degrees); same shape as ``world_locations``."""
-  current_location = np.asarray(current_location)
-  world_locations = np.asarray(world_locations)
+  if not _is_torch(current_location, current_rotation, world_locations):
+    current_location = np.asarray(current_location)
+    world_locations = np.asarray(world_locations)
   R = rot2mat(current_rotation)
   delta = world_locations - current_location[..., None, :] \
       if world_locations.ndim > current_location.ndim else \
       world_locations - current_location
-  return np.einsum("...ij,...j->...i", R, delta) \
+  return _einsum("...ij,...j->...i", R, delta) \
       if delta.ndim == R.ndim - 1 else \
-      np.einsum("...ij,...nj->...ni", R, delta)
+      _einsum("...ij,...nj->...ni", R, delta)
 
 
-def local2world(*, current_location, current_rotation,
-                local_locations) -> np.ndarray:
+def local2world(*, current_location, current_rotation, local_locations):
   """Converts ``local_locations`` to world coordinates (inverse of
   :func:`world2local`)."""
-  current_location = np.asarray(current_location)
-  local_locations = np.asarray(local_locations)
+  if not _is_torch(current_location, current_rotation, local_locations):
+    current_location = np.asarray(current_location)
+    local_locations = np.asarray(local_locations)
   R = rot2mat(current_rotation)
   # R is orthonormal: its inverse is its transpose.
-  Rt = np.swapaxes(R, -1, -2)
+  Rt = R.transpose(-1, -2) if _is_torch(R) else np.swapaxes(R, -1, -2)
   if local_locations.ndim == R.ndim - 1:
-    return np.einsum("...ij,...j->...i", Rt, local_locations) + \
+    return _einsum("...ij,...j->...i", Rt, local_locations) + \
         current_location
-  out = np.einsum("...ij,...nj->...ni", Rt, local_locations)
+  out = _einsum("...ij,...nj->...ni", Rt, local_locations)
   return out + current_location[..., None, :]
 
 

@@ -1,1 +1,1 @@
-"""Framework-free utilities: spaces and unique tokens."""
+"""Utilities: spaces, unique tokens, loggers, checkpointing."""

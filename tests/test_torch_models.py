@@ -212,8 +212,8 @@ def test_converter_uses_every_leaf_once(dim_models):
   assert sum(np.size(l) for l in jax.tree.leaves(tree)) == DIM_PARAMS
   sd = convert.state_dict(tree)
   assert set(sd) == set(tm.state_dict())
-  # The port's GRU holds flax's missing hr/hz biases as 2 x 64 zeros.
-  assert sum(v.numel() for v in sd.values()) == DIM_PARAMS + 128
+  # The port's GRU holds exactly flax's parameters.
+  assert sum(v.numel() for v in sd.values()) == DIM_PARAMS
   for key, value in sd.items():
     assert torch.equal(tm.state_dict()[key], value), key
   gru = tree["params"]["decoder"]["gru"]
@@ -221,7 +221,9 @@ def test_converter_uses_every_leaf_once(dim_models):
                                 gru["hn"]["kernel"].T)
   np.testing.assert_array_equal(sd["decoder.gru.bias_ih"][:64].numpy(),
                                 gru["ir"]["bias"])
-  assert not sd["decoder.gru.bias_hh"][:128].any()
+  np.testing.assert_array_equal(sd["decoder.gru.bias_hn"].numpy(),
+                                gru["hn"]["bias"])
+  assert not tm.decoder.gru.bias_hh[:128].any()
   np.testing.assert_array_equal(
       sd["encoder.block_1.depthwise.weight"].numpy(),
       tree["params"]["encoder"]["block_1"]["depthwise"]["kernel"].transpose(

@@ -10,7 +10,11 @@ import sys
 import pytest
 import torch
 
+from oatomobile_torch.baselines.learned.cil import train as cil_train
+from oatomobile_torch.baselines.learned.dim import train as dim_train
+from oatomobile_torch.baselines.learned.rip import train as rip_train
 from oatomobile_torch.benchmarks.batched_eval import evaluate_batched
+from oatomobile_torch.datasets import CARLADataset
 from oatomobile_torch.envs.batched import BatchedEnv
 from oatomobile_torch.envs.carla import CARLAEnv, CARLANavEnv
 from oatomobile_torch.maps import load_town
@@ -51,6 +55,14 @@ def test_import_and_rollout_without_jax():
       "from oatomobile_torch.baselines.learned import CILAgent, DIMAgent, "
       "RIPAgent\n"
       "from oatomobile_torch.benchmarks.corl2017.benchmark import _TASKS\n"
+      "from oatomobile_torch.datasets import CARLADataset\n"
+      "from oatomobile_torch.baselines.learned.dim import train\n"
+      "from oatomobile_torch.baselines.learned.cil import train\n"
+      "from oatomobile_torch.baselines.learned.rip import train\n"
+      "from oatomobile_torch.utils import checkpoint, flax_msgpack\n"
+      "from oatomobile_torch.utils import loggers\n"
+      "from oatomobile_torch.parallel import dp\n"
+      "from oatomobile_torch.envs.multi_town import MultiTownBatchedEnv\n"
       "tasks = {t: dict(_TASKS[t], num_vehicles=2) for t in "
       "('Town02_Turn0-v0', 'Town02_Straight0-v0')}\n"
       "out = evaluate_batched(tasks, horizon=2, device='cpu')\n"
@@ -64,7 +76,7 @@ def test_import_and_rollout_without_jax():
       "_, _, stats = env.rollout(1, policy=policy)\n"
       "assert (stats['distance'] > 0).all()\n"
       "bad = [m for m in sys.modules if m.split('.')[0] in "
-      "('jax', 'jaxlib', 'flax', 'optax', 'oatomobile_tpu')]\n"
+      "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'oatomobile_tpu')]\n"
       "assert not bad, bad\n"
       "print('clean')\n")
   env = dict(os.environ, PYTHONPATH=ROOT)
@@ -77,7 +89,8 @@ def test_import_and_rollout_without_jax():
 
 def test_sources_never_import_jax():
   pattern = re.compile(
-      r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|oatomobile_tpu)\b", re.M)
+      r"^\s*(import|from)\s+"
+      r"(jax|jaxlib|flax|optax|msgpack|oatomobile_tpu)\b", re.M)
   for folder, _, files in os.walk(PACKAGE):
     for name in files:
       if name.endswith(".py"):
@@ -85,7 +98,7 @@ def test_sources_never_import_jax():
           assert not pattern.search(fp.read()), name
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
   if torch.cuda.is_available():
     pytest.skip("a CUDA device is present: the default is usable here")
   with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -104,6 +117,14 @@ def test_entry_points_default_to_cuda():
                lambda: CARLAEnv(town="Town02"),
                lambda: CUDASimulator("Town02"),
                lambda: make_params(load_town("Town02"))):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+      make()
+  # Collection and the trainers (they fail before reading any data).
+  out = str(tmp_path)
+  for make in (lambda: CARLADataset.collect_packed("Town02", out),
+               lambda: dim_train.train(out, out),
+               lambda: cil_train.train(out, out),
+               lambda: rip_train.train(out, out)):
     with pytest.raises(RuntimeError, match="device='cpu'"):
       make()
 
