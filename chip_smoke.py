@@ -20,8 +20,10 @@ Needs one CUDA card and the CUDA toolkit (nvcc).  It:
      stats against each other;
   6. drives the main path: ``BatchedEnv("Town01", 1024, num_vehicles=16,
      route_capacity=1024, seed=0).rollout(256, compute=("lidar",))`` once
-     to warm up and once timed, with every kernel's launch count set to 0
-     just before the timed run and read just after;
+     to warm up (two eager steps, then the step's capture into a CUDA
+     graph: its seconds are printed) and once timed (graph replays), with
+     every kernel's launch count set to 0 just before the timed run and
+     read just after;
   7. times each kernel (CUDA events around back-to-back calls, median
      of 21 runs) beside its plain version and its bound, and a fill of a
      tensor the size of the splat's output (what the card's memory gives a
@@ -76,8 +78,10 @@ Needs one CUDA card and the CUDA toolkit (nvcc).  It:
  15. drives the training path at full width: ``collect_packed("Town01",
      ..., num_episodes=64, num_steps=400, num_vehicles=16, noise=0.2,
      seed=0)`` (24-scene chunks, 3 x 400 splat launches) and a breakdown
-     of one chunk (set-up, a step with the collected sensors, with the
-     LIDAR alone, with none, with none and no noise, the device packing),
+     of one chunk (set-up; a step with the collected sensors, with the
+     LIDAR alone, with none, with none and no noise, each with the
+     host's ms a step to enqueue its replays, and the device's busy ms
+     and idle share over 16 more steps; the device packing),
      then with the pack resident on the card DIM for 2 epochs (the last
      epoch's mean NLL below the first's), CIL for 1 and RIP with K = 4 for
      1, each at batch 512 and lr 1e-3, with the updates, the median ms of
@@ -86,7 +90,22 @@ Needs one CUDA card and the CUDA toolkit (nvcc).  It:
      memory, the epochs' losses, the val loss and the checkpoint; then
      loads ``model-best.pt`` through ``benchmarks.run``'s loader into a
      ``DIMAgent`` and takes one single-scene step on the card;
- 16. prints one JSON line of the kernels and, last, the ok/device line.
+ 16. holds the compiled rollout against the private eager loop it
+     replaced on four paths: the autopilot bench configuration (1024
+     scenes), one 24-scene collection chunk of the training path (noise
+     0.2, its nine sensors collected), the CARNOVEL Town04 group with the
+     autopilot, and the 1024-scene DIM path.  On each, eager and graph
+     runs from the same initial state alternate, GRAPH_PAIRS pairs at
+     GRAPH_STEPS steps (cut from the paths' own lengths to fit the
+     script's time): every run must equal the first bit for bit (stats,
+     metrics, collected observations) and every graph run must launch the
+     splat once a step where the path splats.  Prints per path each run's
+     ms a step and env steps/s (``utils.profiling.timed``), then those of
+     the graph's replays alone, the captures' seconds and reserved bytes,
+     and per mode the device's busy ms, kernels and idle share a step
+     (``utils.profiling.device_busy`` over GRAPH_PROFILE_STEPS more steps,
+     against the eager runs' median step and the replays' step);
+ 17. prints one JSON line of the kernels and, last, the ok/device line.
 
 ``--prev-splat PATH`` (may be given more than once) names another design
 of the splat, a bev_splat.cu with the same C entry point
@@ -161,6 +180,16 @@ TRAIN_BATCH, DIM_EPOCHS, TIMED_UPDATES = 512, 2, 7
 # Steps of each rollout of the collection's breakdown (past 20 + future 80
 # + 20: packing finds windows in them).
 COLLECT_BREAKDOWN_STEPS = 120
+# The compiled rollout against the eager loop: pairs of runs in turn, the
+# steps of each run per path (the eager side is the slow one: 50 ms an
+# autopilot step, up to 0.6 s a DIM step on the slower hosts), and the
+# steps each mode runs under the profiler.
+GRAPH_PAIRS = 3
+GRAPH_STEPS = {"autopilot": 128, "collection": 80, "carnovel": 150,
+               "dim": 16}
+GRAPH_PROFILE_STEPS = {"autopilot": 16, "collection": 16, "carnovel": 16,
+                       "dim": 4}
+CARNOVEL_GRAPH_TOWN = "Town04"
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bandwidth and
 # FP32 rate outside the tensor cores.
@@ -340,13 +369,18 @@ def drive_dim_path() -> int:
   from oatomobile_torch import bench  # pylint: disable=import-outside-toplevel
   from oatomobile_torch.envs.batched import BatchedEnv  # pylint: disable=import-outside-toplevel
   from oatomobile_torch.ops import bev_cuda  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch import graphs  # pylint: disable=import-outside-toplevel
   env = BatchedEnv(TOWN, BATCH, num_vehicles=VEHICLES, route_capacity=1024,
                    seed=0, device="cuda")
   policy = bench.dim_policy(100, "float32", device="cuda")
+  graphs.capture_seconds, graphs.capture_bytes = 0.0, 0
   t0 = time.perf_counter()
   _, _, s = env.rollout(DIM_WARMUP_STEPS, policy=policy)
   float(s["distance"].sum())
   warmup = time.perf_counter() - t0
+  print("dim path: the step captured in {:.3f}s, {} bytes reserved for its "
+        "graph's pool (memory_reserved after the capture less before)".format(
+            graphs.capture_seconds, graphs.capture_bytes))
   bev_cuda.launches = 0
   t0 = time.perf_counter()
   _, _, s = env.rollout(DIM_STEPS, policy=policy)
@@ -356,7 +390,8 @@ def drive_dim_path() -> int:
   s = {k: v.cpu() for k, v in s.items()}
   finite = all(bool(torch.isfinite(v.float()).all()) for v in s.values())
   print("dim path: {} x {} steps in {:.3f}s = {:.1f} env steps/s ({:.2f} "
-        "ms a step; warm-up {} steps {:.1f}s); bev_splat launches={} for {} "
+        "ms a step of graph replays; warm-up {} steps {:.1f}s, the capture "
+        "included); bev_splat launches={} for {} "
         "steps; stats finite={} distance_mean={:.2f}m episodes={} "
         "collisions={}".format(
             BATCH, DIM_STEPS, elapsed, BATCH * DIM_STEPS / elapsed,
@@ -751,23 +786,33 @@ def update_split_ms(loss_fn, model, batch) -> dict:
   }
 
 
+def collect_sensors() -> tuple:
+  """The sensors ``collect_packed`` collects with its default modalities."""
+  import inspect  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.datasets import carla  # pylint: disable=import-outside-toplevel
+  modalities = inspect.signature(
+      carla.CARLADataset.collect_packed).parameters["modalities"].default
+  return tuple(sorted(set(modalities) | {"location", "rotation",
+                                         "collision"}))
+
+
 def collect_breakdown() -> None:
   """Where a chunk of the full-width collection spends its time: one
   24-scene chunk of TRAIN_COLLECT's town, traffic and noise, set up, then
   COLLECT_BREAKDOWN_STEPS steps collecting ``collect_packed``'s sensors,
   as many computing the LIDAR alone, as many with no sensor and as many
-  with no sensor and a noiseless autopilot (host wall time, each ended by
-  a fetch), then the device packing of the collected steps with their
-  fetch."""
+  with no sensor and a noiseless autopilot (host wall time of graph
+  replays after a first rollout that captures, each ended by a fetch),
+  then the device packing of the collected steps with their fetch."""
   import inspect  # pylint: disable=import-outside-toplevel
   import torch  # pylint: disable=import-outside-toplevel
   from oatomobile_torch.datasets import carla  # pylint: disable=import-outside-toplevel
   from oatomobile_torch.envs.batched import BatchedEnv  # pylint: disable=import-outside-toplevel
   from oatomobile_torch.sim import autopilot_policy  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.utils import profiling  # pylint: disable=import-outside-toplevel
   modalities = inspect.signature(
       carla.CARLADataset.collect_packed).parameters["modalities"].default
-  sensors = tuple(sorted(set(modalities) | {"location", "rotation",
-                                            "collision"}))
+  sensors = collect_sensors()
   t0 = time.perf_counter()
   env = BatchedEnv(TRAIN_TOWN, 24, sensors=sensors,
                    num_vehicles=TRAIN_COLLECT["num_vehicles"], seed=0,
@@ -778,11 +823,22 @@ def collect_breakdown() -> None:
   def policy(params, states):
     return autopilot_policy(params, states, noise=TRAIN_COLLECT["noise"])
 
+  busy = []
+
   def step_ms(**kwargs):
+    """ms a step of a rollout of replays (the first, untimed, captures the
+    step), and the device's busy ms and idle share a step over 16 more."""
+    env.rollout(COLLECT_BREAKDOWN_STEPS, **kwargs)
     t0 = time.perf_counter()
     _, out, stats = env.rollout(COLLECT_BREAKDOWN_STEPS, **kwargs)
+    enqueued = time.perf_counter()
     float(stats["distance"].sum())
-    return 1e3 * (time.perf_counter() - t0) / COLLECT_BREAKDOWN_STEPS, out
+    ms = 1e3 * (time.perf_counter() - t0) / COLLECT_BREAKDOWN_STEPS
+    d = profiling.device_busy(lambda: env.rollout(16, **kwargs), 16, ms)
+    busy.append("{:.3f} ms busy, idle {:.4f}, host enqueue {:.3f} ms".format(
+        d["device_busy_ms_per_step"], d["idle_share"],
+        1e3 * (enqueued - t0) / COLLECT_BREAKDOWN_STEPS))
+    return ms, out
 
   collect_ms, collected = step_ms(policy=policy, collect=sensors)
   lidar_ms, _ = step_ms(policy=policy, compute=("lidar",))
@@ -796,11 +852,13 @@ def collect_breakdown() -> None:
         "NPCs, noise {}): set-up {:.3f}s; a step {:.3f} ms collecting {} "
         "sensors, {:.3f} ms with the LIDAR alone, {:.3f} ms with none, "
         "{:.3f} ms with none and the autopilot's noise at 0 (host wall time "
-        "over {} steps each); device packing of {} steps and its fetch "
-        "{:.3f} ms".format(
+        "of graph replays over {} steps each; the device over 16 more "
+        "steps each, torch.profiler: {}); device packing of {} steps and "
+        "its fetch {:.3f} ms".format(
             TRAIN_COLLECT["num_vehicles"], TRAIN_COLLECT["noise"], setup_s,
             collect_ms, len(sensors), lidar_ms, bare_ms, noiseless_ms,
-            COLLECT_BREAKDOWN_STEPS, COLLECT_BREAKDOWN_STEPS, pack_ms))
+            COLLECT_BREAKDOWN_STEPS, "; ".join(busy),
+            COLLECT_BREAKDOWN_STEPS, pack_ms))
 
 
 def drive_training_path(workdir: str) -> int:
@@ -913,6 +971,194 @@ def drive_training_path(workdir: str) -> int:
   return launches
 
 
+def _max_diff(a, b) -> float:
+  """Largest |a - b| (float tensors) or count of differing elements."""
+  if a.shape != b.shape:
+    return float("inf")
+  if a.dtype.is_floating_point:
+    return float((a - b).abs().max()) if a.numel() else 0.0
+  return float((a != b).sum())
+
+
+def compare_eager_and_graph(name: str, scenes: int, steps: int,
+                            profile_steps: int, run, profile,
+                            splats: bool) -> None:
+  """Eager and graph runs of one path in turn, GRAPH_PAIRS pairs of
+  ``steps`` steps: ``run(mode, steps)`` runs the path from its initial
+  state and returns a dict of tensors; ``profile(mode, steps)`` runs
+  ``steps`` more steps for the profiler (the graph already captured).
+  Fails unless every run equals the first bit for bit, and, where the
+  path ``splats``, every graph run launched the splat once a step."""
+  import torch  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch import graphs  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import bev_cuda  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.utils import profiling  # pylint: disable=import-outside-toplevel
+  graphs.captures, graphs.capture_seconds, graphs.capture_bytes = 0, 0.0, 0
+  ms = {"eager": [], "graph": []}
+  launches, diffs, first = [], {}, None
+  for _ in range(GRAPH_PAIRS):
+    for mode in ms:
+      bev_cuda.launches = 0
+      result, seconds = profiling.timed(run, mode, steps)
+      ms[mode].append(1e3 * seconds / steps)
+      if mode == "graph":
+        launches.append(bev_cuda.launches)
+      if first is None:
+        first = result
+        continue
+      for key, value in result.items():
+        diff = _max_diff(value, first[key])
+        if diff:
+          diffs[key] = max(diffs.get(key, 0.0), diff)
+  # The graph's replays alone: a run that captures holds the capture too.
+  _, seconds = profiling.timed(profile, "graph", steps)
+  step_ms = {"eager": statistics.median(ms["eager"]),
+             "graph": 1e3 * seconds / steps}
+  device = {}
+  for mode in ms:
+    device[mode] = profiling.device_busy(
+        lambda m=mode: profile(m, profile_steps), profile_steps,
+        step_ms[mode])
+    source = "torch.profiler kernel records"
+    if device[mode]["kernels_per_step"] == 0:
+      # The profiler saw no kernel: the span of a run on CUDA events.
+      start = torch.cuda.Event(enable_timing=True)
+      end = torch.cuda.Event(enable_timing=True)
+      start.record()
+      profile(mode, profile_steps)
+      end.record()
+      end.synchronize()
+      busy = start.elapsed_time(end) / profile_steps
+      device[mode].update(device_busy_ms_per_step=busy, idle_share=1.0 - busy /
+                          device[mode]["step_ms"])
+      source = "CUDA events around the steps (the profiler saw no kernel)"
+    device[mode]["source"] = source
+  print("compiled rollout, {} ({} scenes, {} steps a run, {} pairs in turn, "
+        "eager then graph): ms a step eager {} / graph {} (a graph run that "
+        "captures holds {} eager warm-up steps and the capture); env steps/s "
+        "eager {} / graph {}; then {} steps of replays alone {:.3f} ms a "
+        "step = {:.1f} env steps/s; {} captures in {:.3f}s, {} bytes "
+        "reserved; bit-equal over the {} runs: {}{}; splat launches per "
+        "graph run {}"
+        .format(name, scenes, steps, GRAPH_PAIRS,
+                [round(t, 3) for t in ms["eager"]],
+                [round(t, 3) for t in ms["graph"]], graphs.WARMUP_STEPS,
+                [round(1e3 * scenes / t, 1) for t in ms["eager"]],
+                [round(1e3 * scenes / t, 1) for t in ms["graph"]], steps,
+                step_ms["graph"], 1e3 * scenes / step_ms["graph"],
+                graphs.captures, graphs.capture_seconds, graphs.capture_bytes,
+                2 * GRAPH_PAIRS, not diffs,
+                " (max differences {})".format(diffs) if diffs else "",
+                launches))
+  for mode, d in device.items():
+    print("compiled rollout, {} device over {} {} steps ({}): busy {:.4f} ms "
+          "a step, {:.1f} kernels a step, idle share {:.4f} of a {:.3f} ms "
+          "step (eager: the runs' median; graph: the replays alone)".format(name, profile_steps, mode, d["source"],
+                                  d["device_busy_ms_per_step"],
+                                  d["kernels_per_step"], d["idle_share"],
+                                  d["step_ms"]))
+  if diffs:
+    fail("the graph replays of the {} path differ from the eager loop: "
+         "{}".format(name, diffs))
+  if splats and launches != [steps] * GRAPH_PAIRS:
+    fail("bev_splat launched {} times in graph runs of {} {} steps".format(
+        launches, steps, name))
+
+
+def drive_compiled_paths() -> None:
+  """The compiled rollout against the eager loop on the autopilot bench,
+  a collection chunk, the CARNOVEL Town04 group and the DIM path."""
+  import torch  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch import bench  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.benchmarks import batched_eval  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.benchmarks.carnovel.benchmark import _TASKS  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.envs.batched import BatchedEnv  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import bev_cuda  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.sim import autopilot_policy  # pylint: disable=import-outside-toplevel
+
+  def env_paths(env, **kwargs):
+    def rollout(mode, steps):
+      fn = env.rollout if mode == "graph" else env._rollout_eager  # pylint: disable=protected-access
+      return fn(steps, **kwargs)
+
+    def run(mode, steps):
+      env.reset()
+      # reset() synthesises the env's sensors (the LIDAR among them for
+      # the collection): count the rollout's launches only.
+      bev_cuda.launches = 0
+      _, collected, stats = rollout(mode, steps)
+      return {**(collected or {}), **{"stats_" + k: v
+                                      for k, v in stats.items()}}
+
+    return run, rollout
+
+  def noisy(params, states):
+    return autopilot_policy(params, states, noise=TRAIN_COLLECT["noise"])
+
+  def autopilot(params, states):
+    return autopilot_policy(params, states, noise=0.0)
+
+  env = BatchedEnv(TOWN, BATCH, num_vehicles=VEHICLES, route_capacity=1024,
+                   seed=0, device="cuda")
+  compare_eager_and_graph(
+      "autopilot bench (Town01, 16 NPCs, compute=lidar)", BATCH,
+      GRAPH_STEPS["autopilot"], GRAPH_PROFILE_STEPS["autopilot"],
+      *env_paths(env, compute=("lidar",)), splats=True)
+
+  sensors = collect_sensors()
+  env = BatchedEnv(TRAIN_TOWN, 24, sensors=sensors,
+                   num_vehicles=TRAIN_COLLECT["num_vehicles"], seed=0,
+                   auto_reset=False, device="cuda")
+  compare_eager_and_graph(
+      "collection chunk (Town01, 16 NPCs, noise {}, {} sensors "
+      "collected)".format(TRAIN_COLLECT["noise"], len(sensors)), 24,
+      GRAPH_STEPS["collection"], GRAPH_PROFILE_STEPS["collection"],
+      *env_paths(env, policy=noisy, collect=sensors), splats=True)
+  del env
+
+  configs = [c for _, c in sorted(_TASKS.items())
+             if c["town"] == CARNOVEL_GRAPH_TOWN]
+  params, states = batched_eval.town_group_scenes(CARNOVEL_GRAPH_TOWN,
+                                                  configs, device="cuda")
+  last = {}
+
+  def run_eval(mode, steps):
+    with torch.no_grad():
+      if mode == "eager":
+        return batched_eval._episode_metrics_rollout_eager(  # pylint: disable=protected-access
+            params, states, autopilot, steps)[1]
+      last["rollout"] = batched_eval._MetricsRollout(  # pylint: disable=protected-access
+          params, states, autopilot)
+      last["rollout"].run(steps)
+      return {k: v.clone() for k, v in last["rollout"].metrics.items()}
+
+  def profile_eval(mode, steps):
+    """The metrics after ``steps`` more steps (``timed`` fetches them)."""
+    with torch.no_grad():
+      if mode == "eager":
+        return batched_eval._episode_metrics_rollout_eager(  # pylint: disable=protected-access
+            params, states, autopilot, steps)[1]
+      last["rollout"].run(steps)
+      return last["rollout"].metrics
+
+  compare_eager_and_graph(
+      "CARNOVEL {} group ({} tasks, configured traffic, autopilot)".format(
+          CARNOVEL_GRAPH_TOWN, len(configs)), len(configs),
+      GRAPH_STEPS["carnovel"], GRAPH_PROFILE_STEPS["carnovel"], run_eval,
+      profile_eval, splats=False)
+  del last, params, states
+
+  env = BatchedEnv(TOWN, BATCH, num_vehicles=VEHICLES, route_capacity=1024,
+                   seed=0, device="cuda")
+  compare_eager_and_graph(
+      "DIM path (Town01, 16 NPCs, 20 plan steps)", BATCH, GRAPH_STEPS["dim"],
+      GRAPH_PROFILE_STEPS["dim"],
+      *env_paths(env, policy=bench.dim_policy(100, "float32", device="cuda")),
+      splats=True)
+  del env
+  torch.cuda.empty_cache()
+
+
 def main() -> None:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--prev-splat", action="append", default=[],
@@ -927,6 +1173,7 @@ def main() -> None:
     fail("no CUDA device (torch.cuda.is_available() is False)")
   sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
   try:
+    from oatomobile_torch import graphs  # pylint: disable=import-outside-toplevel
     from oatomobile_torch.envs.batched import BatchedEnv  # pylint: disable=import-outside-toplevel
     from oatomobile_torch.ops import bev, bev_cuda  # pylint: disable=import-outside-toplevel
   except ImportError as exc:
@@ -1026,8 +1273,11 @@ def main() -> None:
   # -- 5. Main path ------------------------------------------------------------
   env = BatchedEnv(TOWN, BATCH, num_vehicles=VEHICLES, route_capacity=1024,
                    seed=0, device="cuda")
+  graphs.capture_seconds = 0.0
   _, _, s = env.rollout(STEPS, compute=("lidar",))
   float(s["distance"].sum())
+  print("main path: the step captured in {:.3f}s".format(
+      graphs.capture_seconds))
   bev_cuda.launches = 0
   t0 = time.perf_counter()
   final, _, s = env.rollout(STEPS, compute=("lidar",))
@@ -1036,7 +1286,8 @@ def main() -> None:
   launches = bev_cuda.launches
   s = {k: v.cpu() for k, v in s.items()}
   finite = all(bool(torch.isfinite(v.float()).all()) for v in s.values())
-  print("main path: {} x {} steps in {:.3f}s = {:.1f} env steps/s; "
+  print("main path: {} x {} steps in {:.3f}s = {:.1f} env steps/s (graph "
+        "replays); "
         "bev_splat launches={} (lidar syntheses={}); stats finite={} "
         "checksum_min={:.1f} distance_mean={:.2f}m episodes={} "
         "collisions={}".format(
@@ -1110,6 +1361,9 @@ def main() -> None:
 
     # -- 13. The training path at full width -----------------------------------
     launches_collect = drive_training_path(workdir)
+
+  # -- 14. The compiled rollout against the eager loop ---------------------------
+  drive_compiled_paths()
 
   kernels = [{
       "name": "bev_splat",

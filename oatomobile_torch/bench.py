@@ -6,8 +6,8 @@ scenes on one CUDA device.
 
 The workloads are the JAX package's ``bench.py``: Town01, 1024 scenes, 16
 NPC vehicles, route capacity 1024, seed 0, 256 closed-loop steps; one
-warm-up rollout, then one timed rollout ending in a small fetch to the
-host.  ``BENCH_MODE=autopilot`` (the default) drives the autopilot with
+warm-up rollout (which captures the step into a CUDA graph), then one
+timed rollout of graph replays ending in a small fetch to the host.  ``BENCH_MODE=autopilot`` (the default) drives the autopilot with
 the 200x200x2 BEV LIDAR synthesised every step (``compute=("lidar",)``).
 ``BENCH_MODE=dim`` drives the learned DIM agent instead (BEV ->
 MobileNetV2 -> flow -> 20 in-loop Adam steps -> PID), whose policy
@@ -23,8 +23,9 @@ TF32 is off for GEMMs and convolutions.
 Other knobs: ``BENCH_BATCH``, ``BENCH_TOWN``, ``BENCH_VEHICLES``,
 ``BENCH_STEPS``.  ``BENCH_PROFILE=1`` adds, on stderr, a per-layer
 breakdown of a step (for DIM: observe, encoder, planner, bridge), the
-stages of one DIM policy call on CUDA events, and the device's busy time,
-kernel count and idle share per step from a profiler trace.
+stages of one DIM policy call on CUDA events (both eager, op by op), and
+the device's busy time, kernel count and idle share per step of the
+captured rollout (``utils.profiling.device_busy``).
 
 Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}, with
 ``vs_baseline`` the ratio to the 100k steps/s north-star target.
@@ -40,6 +41,7 @@ import torch
 from oatomobile_torch.envs.batched import BatchedEnv
 from oatomobile_torch.ops import bev, bev_cuda
 from oatomobile_torch.sim import autopilot_policy, world_step
+from oatomobile_torch.utils import profiling
 
 
 def _timer(totals: dict):
@@ -114,27 +116,6 @@ def policy_stage_ms(policy, params, state, calls: int = 5) -> dict:
   return totals
 
 
-def device_busy(env: BatchedEnv, step_ms: float, steps: int = 16,
-                policy=None, **rollout_kwargs) -> dict:
-  """Device time per step from a ``torch.profiler`` trace of ``steps``
-  rollout steps: the summed self time of every kernel on the card, the
-  number of kernels, and the idle share of an unprofiled step of
-  ``step_ms`` (the trace's own wall time is inflated by the profiler)."""
-  from torch.profiler import ProfilerActivity, profile  # pylint: disable=import-outside-toplevel
-  torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-    env.rollout(steps, policy=policy, **rollout_kwargs)
-    torch.cuda.synchronize()
-  kernels = [e for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-  busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-  return {"device_busy_ms_per_step": busy_ms,
-          "kernels_per_step": len(kernels) / steps,
-          "step_ms": step_ms,
-          "idle_share": 1.0 - busy_ms / step_ms}
-
-
 def dim_policy(size: int = 100, encoder_dtype: str = "float32",
                device="cuda"):
   """The bench's DIM policy: ``ImitativeModel((4, 2), (size, size))`` with
@@ -198,9 +179,9 @@ def main() -> None:
     if policy is not None:
       print("policy_call_ms: " + json.dumps(
           policy_stage_ms(policy, env.params, env.state)), file=sys.stderr)
-    print("device: " + json.dumps(device_busy(
-        env, 1e3 * elapsed / steps, profile_steps, policy, **rollout_kwargs)),
-          file=sys.stderr)
+    print("device: " + json.dumps(profiling.device_busy(
+        lambda: env.rollout(profile_steps, policy=policy, **rollout_kwargs),
+        profile_steps, 1e3 * elapsed / steps)), file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -5,9 +5,10 @@ The reference evaluates benchmark tasks one env and one episode at a
 time.  Here tasks are grouped by town, each group becomes one scene batch
 (origin/destination from the task configs), and one closed-loop rollout
 produces every episode's metrics at once: CARNOVEL's 27 tasks are two
-batches (Town03, Town04).  Where the JAX package compiles the rollout
-with ``lax.scan``, the loop over time is a Python loop on ``device``, and
-the metrics reach the host once per town group.
+batches (Town03, Town04).  Where the JAX package jits the rollout's
+``lax.scan``, the metric step runs on static buffers and, on a card, is
+captured into a CUDA graph and replayed once a step; the metrics reach
+the host once per town group.
 """
 
 import json
@@ -19,13 +20,80 @@ import numpy as np
 import torch
 
 from oatomobile_torch import device as device_lib
+from oatomobile_torch import graphs
 from oatomobile_torch.maps import load_town
 from oatomobile_torch.sim import (autopilot_policy, init_scene_batch,
                                   make_params, world_step)
+from oatomobile_torch.sim.types import clone_state, copy_state_
 from oatomobile_torch.sim.util import constant, norm
 
 HORIZON = 1500  # the reference's CARNOVEL horizon
 ROUTE_CAPACITY = 2048
+
+
+METRIC_DTYPES = {"steps": torch.int32, "collisions": torch.int32,
+                 "lane_invasions": torch.int32, "distance": torch.float32,
+                 "returns": torch.float32, "success": torch.bool,
+                 "active": torch.bool}
+
+
+def _metrics_step(params, states, m, policy, proximity):
+  """One step of the episode-metric rollout: (metrics, states) after it,
+  as new tensors."""
+  active = m["active"]
+  frozen_action = constant((0.0, 0.0, 1.0), states.hero_xy.device)
+  actions, states = policy(params, states)
+  actions = torch.where(active[:, None], actions, frozen_action)
+  new_states = world_step(params, states, actions)
+  collided = (new_states.collision > 0.0) & active
+  arrived = (norm(new_states.hero_xy - new_states.destination_xy) <
+             proximity) & active
+  m = {
+      "steps": m["steps"] + active.to(torch.int32),
+      "collisions": m["collisions"] + collided.to(torch.int32),
+      "lane_invasions": m["lane_invasions"] +
+                        torch.where(active, new_states.lane_invasion, 0),
+      "distance": m["distance"] + torch.where(
+          active, norm(new_states.hero_xy - states.hero_xy), 0.0),
+      "returns": m["returns"] + torch.where(arrived, 1.0, 0.0) +
+                 torch.where(collided, -1.0, 0.0),
+      "success": m["success"] | arrived,
+      "active": active & ~collided & ~arrived,
+  }
+  return m, new_states
+
+
+def _initial_metrics(batch_size: int, device) -> Dict[str, torch.Tensor]:
+  m = {k: torch.zeros(batch_size, dtype=dtype, device=device)
+       for k, dtype in METRIC_DTYPES.items()}
+  m["active"].fill_(True)
+  return m
+
+
+class _MetricsRollout:
+  """The episode-metric step on static copies of ``states`` and the
+  metrics (``states`` and ``metrics``), captured into a CUDA graph on a
+  card (``graphs.CapturedStep``, the counterpart of the JAX package's
+  jitted scan); ``run(n)`` takes ``n`` steps."""
+
+  def __init__(self, params, states, policy, proximity: float = 7.5):
+    device = states.hero_xy.device
+    self.states = clone_state(states)
+    self.metrics = _initial_metrics(states.batch_size, device)
+
+    def step():
+      m, new_states = _metrics_step(params, self.states, self.metrics,
+                                    policy, proximity)
+      for k, v in m.items():
+        self.metrics[k].copy_(v)
+      copy_state_(self.states, new_states)
+
+    self._step = graphs.CapturedStep(step, device,
+                                     pool=graphs.new_pool(device))
+
+  def run(self, num_steps: int) -> None:
+    for _ in range(num_steps):
+      self._step()
 
 
 def _episode_metrics_rollout(params, states, policy, num_steps: int,
@@ -34,41 +102,51 @@ def _episode_metrics_rollout(params, states, policy, num_steps: int,
   with CARNOVEL semantics: an episode ends on a collision or on arrival
   within ``proximity`` m of the destination, and its scene is frozen
   after (the policy still runs on every scene, then frozen scenes get a
-  full brake, [0, 0, 1]).  Returns (final states, metrics of [B] tensors
-  on the states' device)."""
-  B, dev = states.batch_size, states.hero_xy.device
-  frozen_action = constant((0.0, 0.0, 1.0), dev)
-  m = {
-      "steps": torch.zeros(B, dtype=torch.int32, device=dev),
-      "collisions": torch.zeros(B, dtype=torch.int32, device=dev),
-      "lane_invasions": torch.zeros(B, dtype=torch.int32, device=dev),
-      "distance": torch.zeros(B, dtype=torch.float32, device=dev),
-      "returns": torch.zeros(B, dtype=torch.float32, device=dev),
-      "success": torch.zeros(B, dtype=torch.bool, device=dev),
-      "active": torch.ones(B, dtype=torch.bool, device=dev),
-  }
+  full brake, [0, 0, 1]).  Runs ``_MetricsRollout``.  Returns (final
+  states, metrics of [B] tensors on the states' device), the caller's own
+  copies."""
+  rollout = _MetricsRollout(params, states, policy, proximity)
+  rollout.run(num_steps)
+  return (clone_state(rollout.states),
+          {k: v.clone() for k, v in rollout.metrics.items()})
+
+
+def _episode_metrics_rollout_eager(params, states, policy, num_steps: int,
+                                   proximity: float = 7.5):
+  """``_episode_metrics_rollout`` as a plain loop that launches every op
+  from the host: the yardstick that tests and ``chip_smoke.py`` hold the
+  captured step against."""
+  m = _initial_metrics(states.batch_size, states.hero_xy.device)
   for _ in range(num_steps):
-    active = m["active"]
-    actions, states = policy(params, states)
-    actions = torch.where(active[:, None], actions, frozen_action)
-    new_states = world_step(params, states, actions)
-    collided = (new_states.collision > 0.0) & active
-    arrived = (norm(new_states.hero_xy - new_states.destination_xy) <
-               proximity) & active
-    m = {
-        "steps": m["steps"] + active.to(torch.int32),
-        "collisions": m["collisions"] + collided.to(torch.int32),
-        "lane_invasions": m["lane_invasions"] +
-                          torch.where(active, new_states.lane_invasion, 0),
-        "distance": m["distance"] + torch.where(
-            active, norm(new_states.hero_xy - states.hero_xy), 0.0),
-        "returns": m["returns"] + torch.where(arrived, 1.0, 0.0) +
-                   torch.where(collided, -1.0, 0.0),
-        "success": m["success"] | arrived,
-        "active": active & ~collided & ~arrived,
-    }
-    states = new_states
+    m, states = _metrics_step(params, states, m, policy, proximity)
   return states, m
+
+
+def town_group_scenes(town_name: str, configs, num_episodes: int = 1,
+                      seed: int = 0, device="cuda"):
+  """(params, states) of one town's tasks: scene ``e * T + i`` is episode
+  ``e`` of task ``configs[i]`` (T tasks), at the task's origin and
+  destination with its configured traffic."""
+  town = load_town(town_name)
+  params = make_params(town, device=device)
+  E = int(num_episodes)
+  # Actor arrays pad to the group max but alive-mask down per task: each
+  # task keeps its own configured traffic density.
+  states = init_scene_batch(
+      town,
+      len(configs) * E,
+      num_vehicles=np.tile(np.asarray(
+          [int(c.get("num_vehicles", 0)) for c in configs]), E),
+      num_pedestrians=np.tile(np.asarray(
+          [int(c.get("num_pedestrians", 0)) for c in configs]), E),
+      route_capacity=ROUTE_CAPACITY,
+      seed=seed,
+      spawn_points=np.tile(np.asarray([c["origin"] for c in configs]), E),
+      destinations=np.tile(np.asarray([c["destination"] for c in configs]),
+                           E),
+      device=device,
+  )
+  return params, states
 
 
 def task_family(task_id: str) -> str:
@@ -163,29 +241,10 @@ def evaluate_batched(
   E = int(num_episodes)
   results: Dict[str, Dict[str, float]] = {}
   for town_name, group in sorted(by_town.items()):
-    town = load_town(town_name)
-    params = make_params(town, device=device)
     ids = [t for t, _ in group]
-    configs = [c for _, c in group]
     T = len(group)
-    # Episode replicas tile the task axis: scene e*T + i is episode e of
-    # task i.  Actor arrays pad to the group max but alive-mask down per
-    # task: each task keeps its own configured traffic density.
-    states = init_scene_batch(
-        town,
-        T * E,
-        num_vehicles=np.tile(np.asarray(
-            [int(c.get("num_vehicles", 0)) for c in configs]), E),
-        num_pedestrians=np.tile(np.asarray(
-            [int(c.get("num_pedestrians", 0)) for c in configs]), E),
-        route_capacity=ROUTE_CAPACITY,
-        seed=seed,
-        spawn_points=np.tile(np.asarray(
-            [c["origin"] for c in configs]), E),
-        destinations=np.tile(np.asarray(
-            [c["destination"] for c in configs]), E),
-        device=device,
-    )
+    params, states = town_group_scenes(town_name, [c for _, c in group], E,
+                                       seed, device)
     with torch.no_grad():
       _, metrics = _episode_metrics_rollout(params, states, policy_fn,
                                             horizon)

@@ -2,10 +2,17 @@
 
 Port of the JAX package's ``envs/batched.py``.  Where the JAX class
 ``vmap``s a one-scene step, ``lax.scan``s it over time and places the
-batch on a device mesh, this class steps a ``[B, ...]`` scene batch with
-a Python loop over time on one ``device``.  Done scenes are reset on the
-device from their initial state, with a fresh key folded from the live
-one (unless ``auto_reset=False``, as the collection pipeline asks).
+batch on a device mesh, this class steps a ``[B, ...]`` scene batch on one
+``device``.  Done scenes are reset on the device from their initial
+state, with a fresh key folded from the live one (unless
+``auto_reset=False``, as the collection pipeline asks).
+
+The JAX package jits its step and its rollout's scan with the state
+donated.  Here one step (policy -> world step -> done -> stats -> sensors
+-> auto-reset) reads the live state, the stats and the key from static
+buffers and writes the next state back into them; on a card it is
+captured once per rollout configuration into a CUDA graph and replayed
+once a step (``graphs.CapturedStep``), on the CPU it runs eagerly.
 """
 
 from typing import Callable, Dict, Optional, Sequence, Tuple
@@ -13,14 +20,23 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 from oatomobile_torch import device as device_lib
+from oatomobile_torch import graphs
 from oatomobile_torch import rng as rng_lib
 from oatomobile_torch.maps import load_town
 from oatomobile_torch.sensors import synth
 from oatomobile_torch.sim import (autopilot_policy, init_scene_batch,
                                   make_params, world_step)
-from oatomobile_torch.sim.types import SceneState, map_state
+from oatomobile_torch.sim.types import (SceneState, clone_state, copy_state_,
+                                        map_state)
 from oatomobile_torch.sim.util import norm
 from oatomobile_torch.sim.world import SIMULATOR_FPS
+
+STAT_DTYPES = {"episodes": torch.int32, "collisions": torch.int32,
+               "distance": torch.float32, "obs_checksum": torch.float32}
+
+
+def _autopilot(params, state):
+  return autopilot_policy(params, state, noise=0.0)
 
 
 class BatchedEnv:
@@ -75,9 +91,21 @@ class BatchedEnv:
         seed=seed,
         device=self._device,
     )
-    # The step functions return new tensors and never write into their
-    # inputs, so the live state may share the initial state's storage.
-    self._state = self._initial
+    # The static buffers every step reads and writes in place: the live
+    # state (a copy, so that auto-reset always finds the pristine initial
+    # state), the rollout stats and step()'s actions.
+    self._state = clone_state(self._initial)
+    self._stats = {k: torch.zeros(self._batch_size, dtype=dtype,
+                                  device=self._device)
+                   for k, dtype in STAT_DTYPES.items()}
+    self._actions = torch.zeros((self._batch_size, 3), dtype=torch.float32,
+                                device=self._device)
+    self._pool = graphs.new_pool(self._device)
+    self._step_fn = None
+    # (collect, compute, id(policy), id(collect_transform)) -> (policy,
+    # collect_transform, step): the values hold the policy and transform,
+    # so an id() cannot be recycled while its step is alive.
+    self._rollout_cache: Dict = {}
 
   # -- properties ---------------------------------------------------------
 
@@ -95,7 +123,8 @@ class BatchedEnv:
 
   @property
   def state(self) -> SceneState:
-    return self._state
+    """A copy of the live state (the next step overwrites the live one)."""
+    return clone_state(self._state)
 
   # -- core semantics -------------------------------------------------------
 
@@ -124,21 +153,61 @@ class BatchedEnv:
     return reset_state.replace(
         rng=torch.where(done[:, None], fresh, state.rng))
 
+  def _make_rollout_step(self, policy: Callable, collect: Tuple[str, ...],
+                         compute: Tuple[str, ...],
+                         collect_transform: Optional[Callable]):
+    """One rollout step on the static buffers: policy -> world step ->
+    done -> stats -> sensors -> auto-reset, the next state written into
+    the live state's buffers.  Returns the collected observations (after
+    ``collect_transform``), an empty dict when nothing is collected."""
+    params, state, stats, B = (self._params, self._state, self._stats,
+                               self._batch_size)
+
+    def step():
+      actions, live = policy(params, state)
+      new_state = world_step(params, live, actions)
+      done = self._done(new_state)
+      if compute:
+        obs_c = synth.synthesize(params, new_state, compute)
+        for v in obs_c.values():
+          stats["obs_checksum"] += v.to(torch.float32).reshape(B, -1).sum(-1)
+      stats["episodes"] += done.to(torch.int32)
+      stats["collisions"] += (new_state.collision > 0).to(torch.int32)
+      stats["distance"] += norm(new_state.hero_xy - live.hero_xy)
+      obs = {}
+      if collect:
+        obs = synth.synthesize(params, new_state, collect)
+        if collect_transform is not None:
+          obs = collect_transform(obs)
+      copy_state_(state, self._reset_where_done(new_state, done))
+      return obs
+
+    return graphs.CapturedStep(step, self._device, pool=self._pool)
+
+  def _fused_step(self):
+    """``step``'s work on the static buffers: world step with the actions
+    buffer, done, the env's sensors, auto-reset."""
+    new_state = world_step(self._params, self._state, self._actions)
+    done = self._done(new_state)
+    obs = synth.synthesize(self._params, new_state, self._sensors)
+    copy_state_(self._state, self._reset_where_done(new_state, done))
+    return obs, done
+
   # -- public API ------------------------------------------------------------
 
   def reset(self) -> Dict[str, torch.Tensor]:
-    self._state = self._initial
-    return synth.synthesize(self._params, self._state, self._sensors)
+    copy_state_(self._state, self._initial)
+    return synth.synthesize(self._params, self.state, self._sensors)
 
   def step(self, actions) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Steps all scenes; returns (obs dict of [B, ...], done [B])."""
-    actions = torch.as_tensor(actions, dtype=torch.float32,
-                              device=self._device)
-    new_state = world_step(self._params, self._state, actions)
-    done = self._done(new_state)
-    obs = synth.synthesize(self._params, new_state, self._sensors)
-    self._state = self._reset_where_done(new_state, done)
-    return obs, done
+    self._actions.copy_(torch.as_tensor(actions, dtype=torch.float32,
+                                        device=self._device))
+    if self._step_fn is None:
+      self._step_fn = graphs.CapturedStep(self._fused_step, self._device,
+                                          pool=self._pool)
+    obs, done = self._step_fn()
+    return {k: v.clone() for k, v in obs.items()}, done.clone()
 
   def rollout(
       self,
@@ -148,13 +217,17 @@ class BatchedEnv:
       compute: Sequence[str] = (),
       collect_transform: Optional[Callable] = None,
   ):
-    """Closed-loop rollout on the device: a loop over time of
-    (policy -> step -> auto-reset); nothing is fetched to the host.
+    """Closed-loop rollout on the device: ``num_steps`` steps of (policy
+    -> step -> auto-reset); nothing is fetched to the host.  On a card the
+    step is captured into a CUDA graph at the first rollout of each
+    (collect, compute, policy, collect_transform) and replayed once a
+    step.
 
     Args:
       num_steps: number of steps.
       policy: ``(params, state) -> (action [B, 3], state)``; defaults to the
-        autopilot expert.
+        autopilot expert.  It must not fetch tensors to the host or keep
+        them between calls: on a card it runs inside the capture.
       collect: observation keys stacked over time and returned ([T, B, ...]
         each); leave empty for pure throughput.
       compute: observation keys synthesised every step but not stored;
@@ -167,21 +240,48 @@ class BatchedEnv:
 
     Returns:
       (final_state, collected dict (or () when nothing is collected),
-       episode_stats dict of [B] tensors).
+       episode_stats dict of [B] tensors), each the caller's own copy.
     """
-    if policy is None:
-      def policy(params, state):
-        return autopilot_policy(params, state, noise=0.0)
+    collect, compute = tuple(collect), tuple(compute)
+    key = (collect, compute, None if policy is None else id(policy),
+           None if collect_transform is None else id(collect_transform))
+    if key not in self._rollout_cache:
+      self._rollout_cache[key] = (policy, collect_transform,
+                                  self._make_rollout_step(
+                                      policy or _autopilot, collect, compute,
+                                      collect_transform))
+    step = self._rollout_cache[key][2]
 
+    for v in self._stats.values():
+      v.zero_()
+    out = {}
+    for t in range(num_steps):
+      obs = step()
+      if t == 0:
+        out = {k: torch.empty((num_steps,) + v.shape, dtype=v.dtype,
+                              device=v.device) for k, v in obs.items()}
+      for k, v in obs.items():
+        out[k][t].copy_(v)
+    stats = {k: v.clone() for k, v in self._stats.items()}
+    return self.state, (out if collect else ()), stats
+
+  def _rollout_eager(
+      self,
+      num_steps: int,
+      policy: Optional[Callable] = None,
+      collect: Sequence[str] = (),
+      compute: Sequence[str] = (),
+      collect_transform: Optional[Callable] = None,
+  ):
+    """``rollout`` as a plain loop that launches every op from the host
+    and writes no buffer until it ends: the yardstick that tests and
+    ``chip_smoke.py`` hold the captured step against."""
+    policy = policy or _autopilot
     B, dev = self._batch_size, self._device
-    stats = {
-        "episodes": torch.zeros(B, dtype=torch.int32, device=dev),
-        "collisions": torch.zeros(B, dtype=torch.int32, device=dev),
-        "distance": torch.zeros(B, dtype=torch.float32, device=dev),
-        "obs_checksum": torch.zeros(B, dtype=torch.float32, device=dev),
-    }
+    stats = {k: torch.zeros(B, dtype=dtype, device=dev)
+             for k, dtype in STAT_DTYPES.items()}
     collected = {key: [] for key in collect}
-    state = self._state
+    state = clone_state(self._state)
     for _ in range(num_steps):
       actions, state = policy(self._params, state)
       new_state = world_step(self._params, state, actions)
@@ -189,7 +289,6 @@ class BatchedEnv:
       if compute:
         obs_c = synth.synthesize(self._params, new_state, tuple(compute))
         for v in obs_c.values():
-          # In place: the running sums are the only copies of the stats.
           stats["obs_checksum"] += v.to(torch.float32).reshape(B, -1).sum(-1)
       stats["episodes"] += done.to(torch.int32)
       stats["collisions"] += (new_state.collision > 0).to(torch.int32)
@@ -201,7 +300,7 @@ class BatchedEnv:
         for key, value in obs.items():
           collected[key].append(value)
       state = self._reset_where_done(new_state, done)
-    self._state = state
+    copy_state_(self._state, state)
     out = ({key: torch.stack(values) for key, values in collected.items()}
            if collect else ())
     return state, out, stats

@@ -9,7 +9,9 @@ under the imitation prior and the goal likelihood with Adam.
 The JAX package runs the plan's Adam steps as a ``lax.scan`` of
 ``optax.adam`` updates; here they are a Python loop of the same update,
 written out in optax's order (``adam_update``), with the gradient from
-``torch.autograd.grad`` of the summed per-scene loss.
+``torch.autograd.grad`` of the summed per-scene loss.  In a rollout on a
+card the loop, the autograd backward included, is captured with the rest
+of the step into one CUDA graph (``graphs.CapturedStep``), unrolled.
 """
 
 from typing import Callable, Mapping, Optional, Tuple
@@ -59,7 +61,8 @@ def best_adam_iterate(loss_fn: Callable[[torch.Tensor], torch.Tensor],
 
   The gradient is taken under ``torch.enable_grad()`` even when the caller
   holds ``no_grad``; it is the gradient of ``x`` only, and writes no
-  ``.grad``."""
+  ``.grad``.  Adam's step count is a Python number: a captured step
+  unrolls the loop, so each plan step keeps its own bias correction."""
   x = x0
   mu, nu = torch.zeros_like(x0), torch.zeros_like(x0)
   x_best = x0

@@ -96,6 +96,13 @@ def ground_ring_image() -> np.ndarray:
   return hist.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def ground_ring(device: torch.device) -> torch.Tensor:
+  """``ground_ring_image`` as a tensor on ``device``, made once per device
+  (a copy from host memory cannot sit inside a captured step)."""
+  return torch.as_tensor(ground_ring_image(), device=device)
+
+
 def _expected_obstacle_hits(r: torch.Tensor) -> torch.Tensor:
   """Expected LIDAR hits per pixel on a ~1.5 m tall vertical surface at
   range r (float32, as the JAX package computes it)."""
@@ -287,8 +294,7 @@ def splat_lidar(params, state, *,
   above = torch.where(occupied & in_range,
                       above_counts / HIST_MAX_PER_PIXEL, 0.0)
 
-  ground = torch.as_tensor(ground_ring_image(), device=device)
-  below = torch.where(occupied | ~open_ground, 0.0, ground)
+  below = torch.where(occupied | ~open_ground, 0.0, ground_ring(device))
   return torch.stack([below, above], dim=-1)
 
 

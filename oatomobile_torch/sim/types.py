@@ -203,6 +203,31 @@ def map_state(fn, *states: SceneState) -> SceneState:
   return rec(states)
 
 
+def clone_state(state: SceneState) -> SceneState:
+  """A copy of ``state`` that shares no storage with it."""
+  return map_state(torch.clone, state)
+
+
+def copy_state_(dst: SceneState, src: SceneState) -> SceneState:
+  """Copies every tensor field of ``src`` into the same field of ``dst``
+  in place (``PIDState``s included) and returns ``dst``: the port's
+  counterpart of a donated ``lax.scan`` carry, where the next state is
+  written into the buffers of the last.  A field that ``src`` passed
+  through unchanged (the same tensor) is left as it is."""
+
+  def rec(d, s):
+    for f in dataclasses.fields(d):
+      dv, sv = getattr(d, f.name), getattr(s, f.name)
+      if isinstance(dv, torch.Tensor):
+        if dv is not sv:
+          dv.copy_(sv)
+      else:
+        rec(dv, sv)
+
+  rec(dst, src)
+  return dst
+
+
 _NP_TO_TORCH = {np.dtype(np.float32): torch.float32,
                 np.dtype(np.int32): torch.int32,
                 np.dtype(np.bool_): torch.bool}

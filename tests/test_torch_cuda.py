@@ -117,3 +117,41 @@ def test_dim_policy_on_the_card_matches_the_cpu(card):
   finally:
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = tf32
+
+
+def test_captured_rollout_equals_the_eager_loop(card):
+  """The rollout's step captured into a CUDA graph and replayed, against
+  the private eager loop on the card: the same kernels, so equal bit for
+  bit; one splat launch a step, counted under replay."""
+  kwargs = dict(num_vehicles=8, seed=4, max_episode_steps=12)
+  graph, eager = (BatchedEnv("Town02", 4, device=card, **kwargs)
+                  for _ in range(2))
+  before = bev_cuda.launches
+  final, _, stats = graph.rollout(30, compute=("lidar",))
+  assert bev_cuda.launches == before + 30
+  final_e, _, stats_e = eager._rollout_eager(30, compute=("lidar",))  # pylint: disable=protected-access
+  for key in stats:
+    assert torch.equal(stats[key], stats_e[key]), key
+  assert torch.equal(final.hero_xy, final_e.hero_xy)
+  assert torch.equal(final.rng, final_e.rng)
+  assert int(stats["episodes"].sum()) > 0
+
+
+def test_capture_survives_a_stale_graph_in_a_reference_cycle(card):
+  """An env and its captured step form a reference cycle, so a dropped env
+  keeps its CUDA graph until the collector runs; a collection during
+  another capture would destroy that graph and invalidate the capture.
+  With the collector at its most eager, the next capture still holds."""
+  import gc
+  old = BatchedEnv("Town02", 4, num_vehicles=8, seed=1, device=card)
+  old.rollout(4, compute=("lidar",))
+  del old
+  thresholds = gc.get_threshold()
+  gc.set_threshold(1, 1, 1)
+  try:
+    env = BatchedEnv("Town02", 4, num_vehicles=8, seed=2, device=card)
+    _, _, stats = env.rollout(6, compute=("lidar",))
+    torch.cuda.synchronize()
+  finally:
+    gc.set_threshold(*thresholds)
+  assert bool((stats["obs_checksum"] > 0).all())

@@ -60,7 +60,8 @@ def test_import_and_rollout_without_jax():
       "from oatomobile_torch.baselines.learned.cil import train\n"
       "from oatomobile_torch.baselines.learned.rip import train\n"
       "from oatomobile_torch.utils import checkpoint, flax_msgpack\n"
-      "from oatomobile_torch.utils import loggers\n"
+      "from oatomobile_torch.utils import loggers, profiling\n"
+      "from oatomobile_torch import graphs\n"
       "from oatomobile_torch.parallel import dp\n"
       "from oatomobile_torch.envs.multi_town import MultiTownBatchedEnv\n"
       "tasks = {t: dict(_TASKS[t], num_vehicles=2) for t in "
