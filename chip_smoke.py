@@ -105,7 +105,25 @@ Needs one CUDA card and the CUDA toolkit (nvcc).  It:
      and per mode the device's busy ms, kernels and idle share a step
      (``utils.profiling.device_busy`` over GRAPH_PROFILE_STEPS more steps,
      against the eager runs' median step and the replays' step);
- 17. prints one JSON line of the kernels and, last, the ok/device line.
+ 17. drives the cameras, the game-state masks and the human render: holds
+     the four camera class images and the 64 m game state of 24 Town01
+     scenes (16 NPCs, 8 pedestrians, after 20 autopilot steps) and the
+     whole-town game state of one Town02 scene on the card against the
+     CPU (at most CAMERA_PIXEL_FRACTION of the pixels may differ); runs
+     ``BatchedEnv("Town01", 1024, num_vehicles=16, route_capacity=1024,
+     seed=0).rollout(CAMERA_STEPS, compute=("front_camera_rgb", "lidar"))``
+     once to capture and once timed (one splat launch a step; capture
+     seconds and bytes, peak memory, the device's busy ms and idle share),
+     and times one ``cameras.camera_classes`` call at 1024 scenes beside
+     its bound; collects 24 Town01 scenes x 120 steps with the front
+     camera and the game state (``collect_packed``, 100x100 images, one
+     splat a step); and drives a CARNOVEL task with the cameras and the
+     game state among its sensors through the AutopilotAgent with
+     ``render("human")`` after the reset and every step (uint8 276x720x3
+     frames, two splats a step: the sensor's and the render's);
+ 18. prints the seconds of each phase and the total (the script must
+     stay well inside its time limit), one JSON line of the kernels and,
+     last, the ok/device line.
 
 ``--prev-splat PATH`` (may be given more than once) names another design
 of the splat, a bev_splat.cu with the same C entry point
@@ -184,12 +202,31 @@ COLLECT_BREAKDOWN_STEPS = 120
 # steps of each run per path (the eager side is the slow one: 50 ms an
 # autopilot step, up to 0.6 s a DIM step on the slower hosts), and the
 # steps each mode runs under the profiler.
-GRAPH_PAIRS = 3
-GRAPH_STEPS = {"autopilot": 128, "collection": 80, "carnovel": 150,
-               "dim": 16}
+GRAPH_PAIRS = 2
+GRAPH_STEPS = {"autopilot": 64, "collection": 32, "carnovel": 64,
+               "dim": 8}
 GRAPH_PROFILE_STEPS = {"autopilot": 16, "collection": 16, "carnovel": 16,
                        "dim": 4}
 CARNOVEL_GRAPH_TOWN = "Town04"
+# The cameras and the game-state masks: the card against the CPU on 24
+# Town01 scenes (16 NPCs, 8 pedestrians) after 20 autopilot steps, where
+# only the last ulps of the card's cos/sin may move a pixel; the camera
+# rollout at full width; the collection with the cameras; the single
+# scene with the human render.
+CAMERA_CHECK = dict(batch_size=24, num_vehicles=16, num_pedestrians=8,
+                    seed=0)
+CAMERA_PIXEL_FRACTION = 1e-4
+CAMERA_STEPS = 32
+CAMERA_COLLECT = dict(num_episodes=24, num_steps=120, num_vehicles=16,
+                      noise=0.2, seed=0, image_size=(100, 100))
+CAMERA_SINGLE_SCENE_STEPS = 20
+# FP32 operations of one camera call as the port computes it: per column
+# and wall/vehicle/pedestrian slot the slab test (the ray rotated into
+# the rect's frame, four slab distances, their min/max, hit and select);
+# per pixel the ground point, the road test against 6 rects and the depth
+# resolve of 3 surfaces.
+CAMERA_OPS_PER_SLAB = 31
+CAMERA_OPS_PER_PIXEL = 4 + 6 * 14 + 3 * 10 + 2
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bandwidth and
 # FP32 rate outside the tensor cores.
@@ -903,9 +940,10 @@ def drive_training_path(workdir: str) -> int:
       pack, dim_train.MODALITIES, device="cuda")
   batch = {k: v[:TRAIN_BATCH] for k, v in resident.items()}
   runs = (
+      # plot_every=0: the card's machine has no matplotlib.
       ("dim", lambda out: dim_train.train(
           pack, out, batch_size=TRAIN_BATCH, num_epochs=DIM_EPOCHS,
-          device="cuda"), "dim_train", "model-best.pt",
+          plot_every=0, device="cuda"), "dim_train", "model-best.pt",
        dim_train.make_loss_fn()),
       ("cil", lambda out: cil_train.train(
           pack, out, batch_size=TRAIN_BATCH, num_epochs=1, device="cuda"),
@@ -1159,6 +1197,219 @@ def drive_compiled_paths() -> None:
   torch.cuda.empty_cache()
 
 
+def check_cameras_card_against_cpu() -> None:
+  """The four camera class images and the 64 m game state of
+  CAMERA_CHECK's Town01 scenes, and the whole-town game state of one
+  Town02 scene, on the card and on the CPU from the same state; fails
+  where more than CAMERA_PIXEL_FRACTION of the pixels differ."""
+  import torch  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.envs.batched import BatchedEnv  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.sensors import cameras, synth  # pylint: disable=import-outside-toplevel
+
+  check = dict(CAMERA_CHECK)
+  env = BatchedEnv(TOWN, check.pop("batch_size"), device="cpu", **check)
+  env.rollout(20)
+  town02 = BatchedEnv("Town02", 1, num_vehicles=8, num_pedestrians=4,
+                      seed=0, device="cpu")
+  town02.rollout(20)
+  images = {
+      **{"camera yaw {:g}".format(yaw): (
+          env, lambda p, s, yaw=yaw: cameras.camera_classes(p, s, yaw))
+         for yaw in synth.CAMERA_YAW_OFFSETS.values()},
+      "game_state": (env, synth.game_state),
+      "full_town_game_state Town02": (town02, synth.full_town_game_state),
+  }
+  fractions = {}
+  for name, (source, fn) in images.items():
+    out = [fn(source.params.to(dev), source.state.to(dev)).cpu()
+           for dev in ("cpu", "cuda")]
+    differ = out[0] != out[1]
+    if differ.dim() == 4:  # masks: a pixel differs where any channel does
+      differ = differ.any(-1)
+    fractions[name] = float(differ.float().mean())
+    if not torch.isin(out[0], out[1]).all():
+      fractions[name] = float("inf")  # a class missing on the card
+  print("check cameras and game state card vs cpu (Town01, {} scenes, {} "
+        "NPCs, {} pedestrians, after 20 autopilot steps; the whole town on "
+        "one Town02 scene): differing pixel fractions {} (limit {})".format(
+            CAMERA_CHECK["batch_size"], CAMERA_CHECK["num_vehicles"],
+            CAMERA_CHECK["num_pedestrians"], fractions,
+            CAMERA_PIXEL_FRACTION))
+  if max(fractions.values()) > CAMERA_PIXEL_FRACTION:
+    fail("the cameras or the game state on the card disagree with the CPU")
+
+
+def camera_bound_ms(state, walls: int, per_pixel: bool = False) -> tuple:
+  """Least time of one ``camera_classes`` call on an H100: the class
+  image's bytes written once (the state's few bytes aside) over the memory
+  rate, or the operations over the FP32 rate: the slab tests against the
+  wall, vehicle and pedestrian slots, once per column as the port does
+  them (or once per pixel, ``per_pixel``, as the JAX module writes them),
+  and the per-pixel ground and depth work."""
+  from oatomobile_torch.sensors import cameras  # pylint: disable=import-outside-toplevel
+  B, H, W = state.batch_size, cameras.IMAGE_H, cameras.IMAGE_W
+  slots = (walls + min(cameras.MAX_CAMERA_VEHICLES, state.num_npcs) +
+           min(cameras.MAX_CAMERA_PEDS, state.num_pedestrians))
+  rays = B * W * (H if per_pixel else 1)
+  ops = rays * slots * CAMERA_OPS_PER_SLAB + B * H * W * CAMERA_OPS_PER_PIXEL
+  bytes_ms = 1e3 * B * H * W * 4 / PEAK_BYTES_PER_S
+  ops_ms = 1e3 * ops / PEAK_FP32_PER_S
+  return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                 else "operations")
+
+
+def drive_camera_rollout() -> int:
+  """The 1024-scene autopilot rollout with the front camera and the LIDAR
+  computed every step: a capturing warm-up, a timed run of replays, the
+  device's busy time; then one camera call timed beside its bound.
+  Returns the splat's launches in the timed run."""
+  import torch  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch import graphs  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.envs.batched import BatchedEnv  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import bev_cuda  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.sensors import cameras  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.utils import profiling  # pylint: disable=import-outside-toplevel
+
+  compute = ("front_camera_rgb", "lidar")
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  env = BatchedEnv(TOWN, BATCH, num_vehicles=VEHICLES, route_capacity=1024,
+                   seed=0, device="cuda")
+  graphs.capture_seconds, graphs.capture_bytes = 0.0, 0
+  _, _, s = env.rollout(CAMERA_STEPS, compute=compute)
+  float(s["distance"].sum())
+  bev_cuda.launches = 0
+  t0 = time.perf_counter()
+  _, _, s = env.rollout(CAMERA_STEPS, compute=compute)
+  float(s["distance"].sum())  # the fetch waits for the device
+  elapsed = time.perf_counter() - t0
+  launches = bev_cuda.launches
+  peak = torch.cuda.max_memory_allocated()
+  step_ms = 1e3 * elapsed / CAMERA_STEPS
+  d = profiling.device_busy(lambda: env.rollout(8, compute=compute), 8,
+                            step_ms)
+  s = {k: v.cpu() for k, v in s.items()}
+  finite = all(bool(torch.isfinite(v.float()).all()) for v in s.values())
+  print("camera rollout: {} x {} steps (Town01, {} NPCs, compute={}) in "
+        "{:.3f}s = {:.3f} ms a step = {:.1f} env steps/s (graph replays); "
+        "the step captured in {:.3f}s, {} bytes reserved for its pool; "
+        "max_memory_allocated {} bytes; bev_splat launches={}; device over "
+        "8 more steps (torch.profiler): busy {:.4f} ms a step, {:.1f} "
+        "kernels a step, idle share {:.4f}; stats finite={} checksum_min="
+        "{:.1f}".format(
+            BATCH, CAMERA_STEPS, VEHICLES, compute, elapsed, step_ms,
+            BATCH * CAMERA_STEPS / elapsed, graphs.capture_seconds,
+            graphs.capture_bytes, peak, launches,
+            d["device_busy_ms_per_step"], d["kernels_per_step"],
+            d["idle_share"], finite, float(s["obs_checksum"].min())))
+  if launches != CAMERA_STEPS:
+    fail("bev_splat launched {} times in {} camera rollout steps".format(
+        launches, CAMERA_STEPS))
+  if not finite or not bool((s["obs_checksum"] > 0).all()):
+    fail("the camera rollout's stats are not finite or a checksum is 0")
+
+  params, state = env.params, env.state
+  walls = min(cameras.MAX_CAMERA_WALLS, params.map["wall_rects"].shape[0])
+  ms = cuda_ms(lambda: cameras.camera_classes(params, state, 0.0), calls=2)
+  bound_ms, bound_by = camera_bound_ms(state, walls)
+  pixel_ms, pixel_by = camera_bound_ms(state, walls, per_pixel=True)
+  print("timing camera_classes B={} (CUDA events, 2 calls a run, median of "
+        "21): {:.4f} ms; bound {:.4f} ms ({}) for the port's work (slab "
+        "tests per column), {:.4f} ms ({}) with the slab tests per pixel "
+        "as the JAX module writes them; {:.2%} of the camera rollout's "
+        "{:.3f} ms step".format(BATCH, ms, bound_ms, bound_by, pixel_ms,
+                                pixel_by, ms / step_ms, step_ms))
+  del env, params, state
+  torch.cuda.empty_cache()
+  return launches
+
+
+def drive_camera_collection(workdir: str) -> int:
+  """collect_packed with the front camera and the game state among its
+  modalities; returns the splat's launches."""
+  import inspect  # pylint: disable=import-outside-toplevel
+  import numpy as np  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.datasets import carla  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import bev_cuda  # pylint: disable=import-outside-toplevel
+
+  modalities = inspect.signature(
+      carla.CARLADataset.collect_packed).parameters["modalities"].default
+  modalities = tuple(modalities) + ("front_camera_rgb", "game_state")
+  out = os.path.join(workdir, "camera_pack")
+  bev_cuda.launches = 0
+  t0 = time.perf_counter()
+  samples = carla.CARLADataset.collect_packed(
+      TOWN, out, modalities=modalities, device="cuda", **CAMERA_COLLECT)
+  seconds = time.perf_counter() - t0
+  launches = bev_cuda.launches
+  shapes = {key: np.load(os.path.join(out, key + ".npy"), mmap_mode="r")
+            for key in ("front_camera_rgb", "game_state")}
+  env_steps = CAMERA_COLLECT["num_episodes"] * CAMERA_COLLECT["num_steps"]
+  print("camera collection collect_packed {} {} modalities {}: {} samples "
+        "in {:.3f}s = {:.1f} env steps/s; bev_splat launches={}; {}".format(
+            TOWN, CAMERA_COLLECT, modalities, samples, seconds,
+            env_steps / seconds, launches, ", ".join(
+                "{} {} {}".format(k, tuple(v.shape), v.dtype)
+                for k, v in shapes.items())))
+  if launches != CAMERA_COLLECT["num_steps"]:
+    fail("bev_splat launched {} times in a {}-step collection".format(
+        launches, CAMERA_COLLECT["num_steps"]))
+  if not samples or any(v.shape[0] != samples or v.dtype != np.uint8
+                        for v in shapes.values()):
+    fail("the camera collection wrote no samples or malformed images")
+  return launches
+
+
+def drive_camera_single_scene() -> int:
+  """A CARNOVEL task with the front camera and the game state among its
+  sensors, the AutopilotAgent for CAMERA_SINGLE_SCENE_STEPS steps and
+  ``render("human")`` after the reset and every step; returns the
+  splat's launches."""
+  import numpy as np  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.baselines.rulebased import AutopilotAgent  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.benchmarks.carnovel.benchmark import CARNOVEL  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import bev_cuda  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.simulators.cuda import defaults  # pylint: disable=import-outside-toplevel
+
+  sensors = tuple(defaults.CARLA_SENSORS) + ("front_camera_rgb",
+                                             "game_state")
+  env = CARNOVEL(device="cuda").load(SINGLE_SCENE_TASK, sensors=sensors)
+  env.seed(0)
+  bev_cuda.launches = 0
+  bad = []
+  t0 = time.perf_counter()
+  obs = env.reset()
+  frames = [env.render(mode="human")]
+  agent = AutopilotAgent(env)
+  for _ in range(CAMERA_SINGLE_SCENE_STEPS):
+    obs, _, _, _ = env.step(agent.act(obs))
+    frames.append(env.render(mode="human"))
+  elapsed = time.perf_counter() - t0
+  launches = bev_cuda.launches
+  env.close()
+  for i, frame in enumerate(frames):
+    if (frame.dtype != np.uint8 or frame.shape != (276, 720, 3) or
+        not frame[:240].any()):
+      bad.append(i)
+  print("camera single scene {} (sensors {}): AutopilotAgent {} steps with "
+        "render('human') after the reset and each step in {:.3f}s = {:.1f} "
+        "steps/s (reset and its warm-up included); bev_splat launches={}; "
+        "frames {} x {} {}, empty or malformed: {}; last front_camera_rgb "
+        "{} game_state {} (channel sums {})".format(
+            SINGLE_SCENE_TASK, ",".join(sensors), CAMERA_SINGLE_SCENE_STEPS,
+            elapsed, CAMERA_SINGLE_SCENE_STEPS / elapsed, launches,
+            len(frames), frames[0].shape, frames[0].dtype, bad,
+            obs["front_camera_rgb"].shape, obs["game_state"].shape,
+            obs["game_state"].sum((0, 1)).tolist()))
+  if bad:
+    fail("render('human') gave empty or malformed frames {}".format(bad))
+  if launches != 2 * (CAMERA_SINGLE_SCENE_STEPS + 1):
+    fail("bev_splat launched {} times in a {}-step single scene with the "
+         "human render (two a step and two at reset expected)".format(
+             launches, CAMERA_SINGLE_SCENE_STEPS))
+  return launches
+
+
 def main() -> None:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--prev-splat", action="append", default=[],
@@ -1184,6 +1435,11 @@ def main() -> None:
   torch.backends.cudnn.allow_tf32 = False
 
   t_start = time.perf_counter()
+  marks = [("start", t_start)]  # (phase, when it ended), for the time limit
+
+  def lap(phase: str) -> None:
+    marks.append((phase, time.perf_counter()))
+
   card = card_line()
   print("card: " + card)
 
@@ -1250,6 +1506,8 @@ def main() -> None:
   if differing:
     fail("the graph-captured splat disagrees with the eager call")
   del graph, captured, eager, static, fresh
+
+  lap("build and splat checks")
 
   # -- 4. A small rollout on the card against the CPU ------------------------
   stats = {}
@@ -1328,11 +1586,15 @@ def main() -> None:
         "ms step".format(BATCH, ms, plain_ms, bound_ms, bound_by, slots,
                          fill_ms, ms / step_ms, step_ms))
 
+  lap("rollout check, main path, splat timing")
+
   # -- 7. DIM on the card against the CPU ---------------------------------------
   check_dim_card_against_cpu()
 
   # -- 8. The DIM path ------------------------------------------------------------
   launches_dim = drive_dim_path()
+
+  lap("DIM check and path")
 
   # -- 9. The batched evaluator on the card against the CPU --------------------
   check_eval_card_against_cpu()
@@ -1350,9 +1612,12 @@ def main() -> None:
     fail("bev_splat launched {} times per town group in {} RIP steps".format(
         rip_launches, CARNOVEL_RIP_HORIZON))
 
+  lap("evaluator check and CARNOVEL")
+
   # -- 11. The single-scene API --------------------------------------------------
   launches_single = drive_single_scene()
   check_dim_agent_card_against_cpu()
+  lap("single scene")
 
   # -- 12. Collection and trainer updates on the card against the CPU ---------
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
@@ -1361,9 +1626,22 @@ def main() -> None:
 
     # -- 13. The training path at full width -----------------------------------
     launches_collect = drive_training_path(workdir)
+  lap("collection and update checks, training path")
 
   # -- 14. The compiled rollout against the eager loop ---------------------------
   drive_compiled_paths()
+  lap("compiled rollout against eager")
+
+  # -- 15. Cameras, game-state masks and the human render -------------------------
+  check_cameras_card_against_cpu()
+  lap("camera check")
+  launches_camera = drive_camera_rollout()
+  lap("camera rollout")
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+    launches_camera_collect = drive_camera_collection(workdir)
+  lap("camera collection")
+  launches_camera_single = drive_camera_single_scene()
+  lap("camera single scene")
 
   kernels = [{
       "name": "bev_splat",
@@ -1376,6 +1654,9 @@ def main() -> None:
       "launches_eval_rip": sum(rip_launches.values()),
       "launches_single_scene": launches_single,
       "launches_collect": launches_collect,
+      "launches_camera_rollout": launches_camera,
+      "launches_camera_collect": launches_camera_collect,
+      "launches_camera_single_scene": launches_camera_single,
       "max_abs_err": max_abs_err,
       "ms": ms,
       "plain_ms": plain_ms,
@@ -1385,6 +1666,9 @@ def main() -> None:
       "prev_ms": ms_of[next(iter(prevs))] if prevs else None,
       "fill_ms": fill_ms,
   }]
+  print("phase seconds: {}".format(", ".join(
+      "{} {:.1f}".format(phase, end - start)
+      for (_, start), (phase, end) in zip(marks, marks[1:]))))
   print("total: {:.1f}s".format(time.perf_counter() - t_start))
   print(json.dumps({"kernels": kernels}))
   print(card)

@@ -249,7 +249,7 @@ def train(
     use_mesh: bool = True,
     max_steps_per_epoch: int = 10**9,
     resume: bool = False,
-    plot_every: int = 0,
+    plot_every: int = 4,
     val_fraction: float = 0.05,
     tensorboard: bool = False,
     velocity_dropout: float = VELOCITY_DROPOUT,
@@ -265,8 +265,8 @@ def train(
       ported yet).
     resume: restore the latest full train state (model, optimiser, step,
       key) from output_dir/state: an exact resume.
-    plot_every: must be 0: the sampled-plan panels need ``utils/graphics``,
-      which is not ported yet.
+    plot_every: if > 0, draw sampled plans over the BEV input of a fixed
+      batch every N epochs into output_dir/plots (matplotlib).
     val_fraction: held-out validation fraction (packed datasets only);
       the val NLL is evaluated every epoch and the best model is saved as
       ``model-best``.
@@ -275,10 +275,6 @@ def train(
     device: ``"cuda"`` unless the caller asks for ``"cpu"``.
   """
   del use_mesh
-  if plot_every > 0:
-    raise NotImplementedError(
-        "plot_every > 0 plots sampled plans with utils/graphics, which is "
-        "not ported to oatomobile_torch yet; pass plot_every=0")
   device = device_lib.resolve(device)
   os.makedirs(output_dir, exist_ok=True)
   log_dir = os.path.join(output_dir, "logs")
@@ -317,6 +313,7 @@ def train(
   checkpointer = Checkpointer(os.path.join(output_dir, "ckpts"))
   limit = nll_limit((num_timesteps_to_keep, 2))
   best_val = float("inf")
+  peek = None  # the batch the plots draw, read at the first plot
 
   for epoch in range(start_epoch, num_epochs):
     t0 = time.time()
@@ -341,9 +338,33 @@ def train(
     if (epoch + 1) % save_model_frequency == 0 or epoch == num_epochs - 1:
       checkpointer.save(epoch, state.model.state_dict())
       state_ckpt.save(epoch, state.state_dict())
+    if plot_every and (epoch + 1) % plot_every == 0:
+      if peek is None:
+        peek = next(iter(CARLADataset.make_loader(
+            dataset_dir, MODALITIES, batch_size=2, seed=seed)))
+      _plot_samples(state.model, peek, output_dir, epoch)
   for logger in loggers:
     logger.close()
   return state
+
+
+def _plot_samples(model: ImitativeModel, batch, output_dir: str,
+                  epoch: int) -> None:
+  """One sampled plan and the ground truth over the first sample's BEV
+  input, saved as output_dir/plots/epoch_<epoch>.png."""
+  from oatomobile_torch.utils import graphics  # pylint: disable=import-outside-toplevel
+  with torch.no_grad():
+    sample, context = make_context(model, batch)
+    plans = model.sample(torch.Generator().manual_seed(epoch), **context)
+  target = sample["player_future"][..., :2]
+  plot_dir = os.path.join(output_dir, "plots")
+  os.makedirs(plot_dir, exist_ok=True)
+  bev = sample["visual_features"][0].movedim(0, -1)  # CHW -> HWC
+  graphics.plot_trajectory_overlay(
+      bev.cpu().numpy(),
+      {"sample": plans[0].cpu().numpy(),
+       "ground_truth": target[0].cpu().numpy()},
+      output_fname=os.path.join(plot_dir, "epoch_{}.png".format(epoch)))
 
 
 def main() -> None:
@@ -358,7 +379,7 @@ def main() -> None:
   parser.add_argument("--clip_gradients", action="store_true")
   parser.add_argument("--seed", type=int, default=42)
   parser.add_argument("--resume", action="store_true")
-  parser.add_argument("--plot_every", type=int, default=0)
+  parser.add_argument("--plot_every", type=int, default=4)
   parser.add_argument("--val_fraction", type=float, default=0.05)
   parser.add_argument("--tensorboard", action="store_true")
   parser.add_argument("--device", default="cuda",

@@ -3,8 +3,6 @@ package's ``benchmarks/carnovel/benchmark.py``: 27 JSON navigation tasks
 (AbnormalTurns / BusyTown / Hills / Roundabouts) over Town03-04, horizon
 1500, terminate-on-collision, five metrics.  The task configs are copied
 verbatim (they are data, not code).
-
-``plot_benchmark`` (matplotlib) is not ported yet.
 """
 
 import functools
@@ -61,6 +59,41 @@ class CARNOVEL(Benchmark):
         DistanceMetric(),
         ReturnsMetric(),
     ]
+
+  def plot_benchmark(self, output_dir: str) -> None:
+    """Draws each task's route over its town's road raster, one PNG per
+    task in ``output_dir`` (host-side: matplotlib and the route
+    planner)."""
+    import matplotlib  # pylint: disable=import-outside-toplevel
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt  # pylint: disable=import-outside-toplevel
+    import numpy as np  # pylint: disable=import-outside-toplevel
+    from oatomobile_torch.maps import load_town, plan_route  # pylint: disable=import-outside-toplevel
+
+    os.makedirs(output_dir, exist_ok=True)
+    for task_id, config in _TASKS.items():
+      town = load_town(config["town"])
+      o_loc, _ = town.spawn_transform(config["origin"])
+      d_loc, _ = town.spawn_transform(config["destination"])
+      route, length = plan_route(town, o_loc[:2], d_loc[:2], capacity=4096)
+      pts = town.wp_xy[route[:length]]
+
+      fig, ax = plt.subplots(figsize=(8.0, 8.0))
+      ax.imshow(town.road_mask.T, origin="lower", cmap="gray",
+                extent=(town.raster_origin[0],
+                        town.raster_origin[0] +
+                        town.road_mask.shape[0] / town.raster_ppm,
+                        town.raster_origin[1],
+                        town.raster_origin[1] +
+                        town.road_mask.shape[1] / town.raster_ppm))
+      ax.scatter(pts[:, 0], pts[:, 1], c=np.linspace(0, 1, length),
+                 cmap="RdYlBu_r", s=4)
+      ax.set(title=task_id, frame_on=False)
+      ax.get_xaxis().set_visible(False)
+      ax.get_yaxis().set_visible(False)
+      fig.savefig(os.path.join(output_dir, "{}.png".format(task_id)),
+                  bbox_inches="tight", pad_inches=0)
+      plt.close(fig)
 
 
 carnovel = CARNOVEL()

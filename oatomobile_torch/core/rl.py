@@ -3,13 +3,15 @@ JAX package's ``core/rl.py``.
 
 gym is not a dependency; ``Env``/``Wrapper`` provide the same interface
 surface (reset/step/render/close, observation_space/action_space,
-``unwrapped``).  ``MonitorWrapper`` and ``LiveViewWrapper`` need
-``utils/graphics`` and the dashboard render, which are not ported yet:
-they raise ``NotImplementedError``.
+``unwrapped``).  ``MonitorWrapper`` writes GIFs through ``imageio`` and
+``LiveViewWrapper`` shows frames through ``utils.graphics.LiveViewer``;
+both import them when they are built, not with this module.
 """
 
 import abc
 from typing import Any, Callable, Mapping, Tuple
+
+import numpy as np
 
 from oatomobile_torch.core.dataset import Episode, tokens
 from oatomobile_torch.core.simulator import Action, Observations, Simulator
@@ -210,22 +212,84 @@ class SaveToDiskWrapper(Wrapper):
 
 
 class MonitorWrapper(Wrapper):
-  """Records a video (GIF) of the episode.  Not ported yet: it needs
-  ``imageio`` and the dashboard render of ``utils/graphics``."""
+  """Records a video (GIF) of the episode."""
 
-  def __init__(self, env: Env, **kwargs: Any) -> None:
-    del env, kwargs
-    raise NotImplementedError(
-        "MonitorWrapper is not ported to oatomobile_torch yet: it needs "
-        "imageio and oatomobile_torch.utils.graphics")
+  def __init__(self,
+               env: Env,
+               *,
+               output_fname: str,
+               downsample_factor: int = 1,
+               render_mode: str = "rgb_array",
+               record_every: int = 1) -> None:
+    """``render_mode="human"`` records the multi-panel dashboard
+    (camera + bird view + LIDAR + HUD) instead of the bird view;
+    ``record_every=N`` keeps every Nth frame (20 Hz sim -> 20/N Hz gif)."""
+    super().__init__(env=env)
+    import imageio  # pylint: disable=import-outside-toplevel
+    self._output_fname = output_fname
+    self._downsample_factor = downsample_factor
+    self._render_mode = render_mode
+    self._record_every = max(1, int(record_every))
+    self._frame_count = 0
+    self._recorder = imageio.get_writer(self._output_fname, mode="I")
+
+  def reset(self, *args: Any, **kwargs: Any) -> Observations:
+    observation = self.env.reset(*args, **kwargs)
+    self._record_frame()
+    return observation
+
+  def step(self, action: Action, *args: Any, **kwargs: Any) -> Transition:
+    observation, reward, done, info = self.env.step(action)
+    self._record_frame()
+    return observation, reward, done, info
+
+  def _record_frame(self) -> None:
+    self._frame_count += 1
+    if (self._frame_count - 1) % self._record_every:
+      return
+    frame = np.asarray(self.render(mode=self._render_mode))
+    factor = self._downsample_factor
+    if factor > 1:
+      frame = frame[::factor, ::factor]
+    if frame.dtype != np.uint8:
+      frame = (np.clip(frame, 0.0, 1.0) * 255).astype(np.uint8)
+    self._recorder.append_data(frame)
+
+  def close(self) -> None:
+    # Flush the video before closing the env: imageio writers only write
+    # the file on close.
+    self._recorder.close()
+    self.env.close()
 
 
 class LiveViewWrapper(Wrapper):
-  """Displays the dashboard live while the episode runs.  Not ported yet:
-  it needs ``utils/graphics``."""
+  """Displays the multi-panel dashboard live while the episode runs, the
+  role of the reference's pygame window.  Headless hosts degrade to a
+  no-op (see ``utils.graphics.LiveViewer``)."""
 
-  def __init__(self, env: Env, **kwargs: Any) -> None:
-    del env, kwargs
-    raise NotImplementedError(
-        "LiveViewWrapper is not ported to oatomobile_torch yet: it needs "
-        "oatomobile_torch.utils.graphics")
+  def __init__(self, env: Env, *, refresh_hz: float = 5.0,
+               render_mode: str = "human") -> None:
+    super().__init__(env=env)
+    from oatomobile_torch.utils.graphics import LiveViewer  # pylint: disable=import-outside-toplevel
+    self._viewer = LiveViewer(refresh_hz=refresh_hz)
+    self._render_mode = render_mode
+
+  def _show(self) -> None:
+    frame = np.asarray(self.render(mode=self._render_mode))
+    if frame.dtype != np.uint8:
+      frame = (np.clip(frame, 0.0, 1.0) * 255).astype(np.uint8)
+    self._viewer.show(frame)
+
+  def reset(self, *args: Any, **kwargs: Any) -> Observations:
+    observation = self.env.reset(*args, **kwargs)
+    self._show()
+    return observation
+
+  def step(self, action: Action, *args: Any, **kwargs: Any) -> Transition:
+    transition = self.env.step(action)
+    self._show()
+    return transition
+
+  def close(self) -> None:
+    self._viewer.close()
+    self.env.close()

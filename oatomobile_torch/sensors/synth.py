@@ -1,14 +1,14 @@
 """Observation synthesis over a scene batch.
 
 Port of the JAX package's ``sensors/synth.py``: each sensor is a function
-of ``(params, state)`` returning ``[B, ...]``.  The state sensors, the
-goal sensor, the BEV LIDAR and the two bird-view renders are ported; the
-cameras and the game-state masks are not yet, and asking for them raises
-``NotImplementedError``.
+of ``(params, state)`` returning ``[B, ...]``: the state sensors, the goal
+sensor, the BEV LIDAR, the two bird-view renders, the four perspective
+cameras (``sensors/cameras.py``) and the game-state masks.
 
 The LIDAR goes through the hand-written CUDA splat when the state lies on
 a card (``ops/bev_cuda.py``); on the CPU the same wrapper runs its plain
-version.
+version.  The cameras and the masks are plain PyTorch, as they are XLA
+code in the JAX package.
 """
 
 from typing import Dict, Sequence
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from oatomobile_torch.ops import bev, bev_cuda
+from oatomobile_torch.sensors import cameras
 from oatomobile_torch.sim import traffic
 from oatomobile_torch.sim.types import SceneState, WorldParams
 from oatomobile_torch.sim.util import constant, take
@@ -41,9 +42,9 @@ STATE_SENSORS = (
 NUM_GOALS = 10          # reference defaults.py:139 num_goals
 GOAL_SPACING_M = 2.0    # reference defaults.py:140 sampling_radius
 
-# Sensors of the JAX package that this port does not synthesise yet.
-NOT_PORTED = ("game_state", "front_camera_rgb", "rear_camera_rgb",
-              "left_camera_rgb", "right_camera_rgb")
+# The perspective cameras: yaw offset from the hero's heading, degrees.
+CAMERA_YAW_OFFSETS = {"front_camera_rgb": 0.0, "rear_camera_rgb": 180.0,
+                      "left_camera_rgb": 270.0, "right_camera_rgb": 90.0}
 
 
 def _with_zero(xy: torch.Tensor) -> torch.Tensor:
@@ -146,7 +147,6 @@ _RGB_PALETTE = tuple(map(tuple, np.stack([
 
 BIRD_VIEW_SIZE = 200      # 200x200, as the reference's z = 25 camera
 BIRD_VIEW_METERS = 25.0   # half-width covered
-PED_HALF_SIZE = 0.35      # pedestrians' half length and half width, m
 
 
 def _bird_view_axis(device) -> torch.Tensor:
@@ -209,7 +209,7 @@ def _bird_view_classes(params: WorldParams,
     cls = boxes_cls(state.npc_xy, state.npc_yaw, state.npc_alive,
                     vehicle.length / 2, vehicle.width / 2, 4, cls)
   if state.num_pedestrians > 0:
-    half = constant(float(np.float32(PED_HALF_SIZE)), wx.device)
+    half = constant(float(np.float32(cameras.PED_HALF_SIZE)), wx.device)
     cls = boxes_cls(state.ped_xy, state.ped_yaw, state.ped_alive, half,
                     half, 5, cls)
 
@@ -231,6 +231,131 @@ def bird_view_rgb(params: WorldParams, state: SceneState) -> torch.Tensor:
   """[B, 200, 200, 3] float RGB pseudo-render ('bird_view_camera_rgb')."""
   palette = constant(_RGB_PALETTE, state.hero_xy.device)
   return palette[_bird_view_classes(params, state).long()]
+
+
+GAME_STATE_SIZE = 320        # hero-centric window (64 m at 5 px/m)
+GAME_STATE_PPM = 5.0         # the reference's GAME_STATE pixels_per_meter
+TL_SPLAT_HALF = 1.0          # a light is a 2x2 m splat
+
+
+def _game_state_axis(device) -> torch.Tensor:
+  """[GAME_STATE_SIZE] pixel centres along one axis, metres from the hero
+  (``jnp.linspace`` of the JAX package, to a few ulps)."""
+  size = GAME_STATE_SIZE
+  half = size / (2.0 * GAME_STATE_PPM)
+  return constant(tuple(np.linspace(-half + half / size, half - half / size,
+                                    size, dtype=np.float32).tolist()),
+                  device)
+
+
+def _boxes_mask(wx, wy, xy, yaw, alive, half_l, half_w) -> torch.Tensor:
+  """[B, H, W] bool: world grid points (x [B or 1, H, 1] by row, y
+  [B or 1, 1, W] by column) inside any of each scene's oriented boxes
+  (centres xy [B, K, 2], yaw [B, K], alive [B, K]).  A loop over the K
+  slots with a running ``any``: the JAX package tests [H, W, K] at once,
+  which eager PyTorch would materialise."""
+  cr, sr = torch.cos(yaw), torch.sin(yaw)
+  B, H, W = xy.shape[0], wx.shape[-2], wy.shape[-1]
+  mask = torch.zeros((B, H, W), dtype=torch.bool, device=xy.device)
+  for k in range(xy.shape[1]):
+    rel_u = wx - xy[:, k, 0, None, None]                         # [B, H, 1]
+    rel_v = wy - xy[:, k, 1, None, None]                         # [B, 1, W]
+    c, s = cr[:, k, None, None], sr[:, k, None, None]
+    bu = c * rel_u + s * rel_v
+    bv = -s * rel_u + c * rel_v
+    mask |= ((bu.abs() <= half_l) & (bv.abs() <= half_w) &
+             alive[:, k, None, None])
+  return mask
+
+
+def _light_masks(params: WorldParams, state: SceneState, wx,
+                 wy) -> Sequence[torch.Tensor]:
+  """(green, yellow, red) [B, H, W] bool: grid points within 1 m on both
+  axes of a light in that phase.  The grid is axis-aligned, so a light's
+  splat is a band of rows times a band of columns, and a phase's mask is
+  the boolean product of [B, H, L] rows and [B, L, W] columns (exact: 0/1
+  terms, at most L of them)."""
+  tl_xy = params.map["tl_xy"]
+  B, H, W = state.batch_size, wx.shape[-2], wy.shape[-1]
+  if tl_xy.shape[0] == 0:
+    zeros = torch.zeros((B, H, W), dtype=torch.bool, device=tl_xy.device)
+    return zeros, zeros, zeros
+  tl_states = traffic.traffic_light_states(params, state.time)   # [B, L]
+  rows = ((wx[..., 0, None] - tl_xy[:, 0]).abs() <= TL_SPLAT_HALF)
+  cols = ((wy[..., 0, :, None] - tl_xy[:, 1]).abs() <= TL_SPLAT_HALF)
+  rows = rows.to(torch.float32).expand(B, H, -1)                 # [B, H, L]
+  cols = cols.to(torch.float32).transpose(-1, -2)                # [., L, W]
+  return tuple(
+      torch.matmul(rows * (tl_states == code)[:, None, :], cols) > 0.0
+      for code in (traffic.TL_GREEN, traffic.TL_YELLOW_STATE,
+                   traffic.TL_RED))
+
+
+def _masks(params: WorldParams, state: SceneState, wx, wy, road,
+           lanes) -> torch.Tensor:
+  """[B, H, W, 8] int32 game-state channels over the world grid (x [B or
+  1, H, 1], y [B or 1, 1, W]) given its road and lane masks."""
+  vehicle = params.vehicle
+  B, H, W = state.batch_size, wx.shape[-2], wy.shape[-1]
+  zeros = torch.zeros((B, H, W), dtype=torch.bool, device=wx.device)
+  vehicles = pedestrians = zeros
+  if state.num_npcs > 0:
+    vehicles = _boxes_mask(wx, wy, state.npc_xy, state.npc_yaw,
+                           state.npc_alive, vehicle.length / 2,
+                           vehicle.width / 2)
+  if state.num_pedestrians > 0:
+    half = constant(float(np.float32(cameras.PED_HALF_SIZE)), wx.device)
+    pedestrians = _boxes_mask(wx, wy, state.ped_xy, state.ped_yaw,
+                              state.ped_alive, half, half)
+  green, yellow, red = _light_masks(params, state, wx, wy)
+  hero = _boxes_mask(wx, wy, state.hero_xy[:, None, :],
+                     state.hero_yaw[:, None],
+                     torch.ones_like(state.hero_yaw[:, None],
+                                     dtype=torch.bool),
+                     vehicle.length / 2, vehicle.width / 2)
+  return torch.stack([road.expand(B, H, W), lanes.expand(B, H, W), vehicles,
+                      pedestrians, green, yellow, red, hero],
+                     dim=-1).to(torch.int32)
+
+
+def game_state(params: WorldParams, state: SceneState) -> torch.Tensor:
+  """[B, 320, 320, 8] binary masks: road, lane boundaries, vehicles,
+  pedestrians, green/yellow/red lights, hero, over a 64 m window around
+  each hero, axis-aligned to the world (the JAX package's deliberate
+  deviation from the reference's whole-town raster, which
+  ``full_town_game_state`` gives)."""
+  c = _game_state_axis(state.hero_xy.device)
+  wx = state.hero_xy[:, 0, None, None] + c[None, :, None]        # [B, S, 1]
+  wy = state.hero_xy[:, 1, None, None] + c[None, None, :]        # [B, 1, S]
+
+  origin = params.map["raster_origin"]
+  ppm = params.map["raster_ppm"]
+  road_mask = params.map["road_mask"]
+  H, W = road_mask.shape
+  ix = torch.clamp(torch.round((wx - origin[0]) * ppm).to(torch.int32), 0,
+                   H - 1).long()
+  iy = torch.clamp(torch.round((wy - origin[1]) * ppm).to(torch.int32), 0,
+                   W - 1).long()
+  return _masks(params, state, wx, wy, road_mask[ix, iy],
+                params.map["lane_mask"][ix, iy])
+
+
+def full_town_game_state(params: WorldParams,
+                         state: SceneState) -> torch.Tensor:
+  """[B, H, W, 8] binary masks (channels as ``game_state``) over the whole
+  town raster grid (``params.map["road_mask"]``'s resolution, raster_ppm
+  px/m), as the reference's GameStateSensor rasterises the whole town each
+  step.  Synthesise on demand: a town raster is ~1-2k px a side."""
+  road = params.map["road_mask"]
+  H, W = road.shape
+  origin = params.map["raster_origin"]
+  ppm = params.map["raster_ppm"]
+  wx = origin[0] + torch.arange(H, dtype=torch.float32,
+                                device=road.device) / ppm
+  wy = origin[1] + torch.arange(W, dtype=torch.float32,
+                                device=road.device) / ppm
+  return _masks(params, state, wx[None, :, None], wy[None, None, :], road,
+                params.map["lane_mask"])
 
 
 def actors_tracker(state: SceneState) -> torch.Tensor:
@@ -291,9 +416,10 @@ def synthesize(params: WorldParams,
       out[key] = bird_view_rgb(params, state)
     elif key == "bird_view_camera_cityscapes":
       out[key] = bird_view_cityscapes(params, state)
-    elif key in NOT_PORTED:
-      raise NotImplementedError(
-          "sensor {!r} is not ported to oatomobile_torch yet".format(key))
+    elif key == "game_state":
+      out[key] = game_state(params, state)
+    elif key in CAMERA_YAW_OFFSETS:
+      out[key] = cameras.camera_rgb(params, state, CAMERA_YAW_OFFSETS[key])
     else:
       raise KeyError("Unknown on-device sensor {!r}".format(key))
   return out

@@ -223,8 +223,8 @@ RightCameraRGBSensor = _device_sensor(
 GameStateSensor = _device_sensor(
     "game_state", CARLASensorTypes.GAME_STATE,
     spaces.Box(low=0, high=1, shape=(320, 320, 8), dtype=np.int32))
-# Implemented here; the reference registered it but raised
-# NotImplementedError (simulator.py:1409-1472).
+# Implemented here; the reference registered it but left it unimplemented
+# (simulator.py:1409-1472).
 RedLightInvasionSensor = _device_sensor(
     "red_light_invasion", CARLASensorTypes.RED_LIGHT_INVASION,
     spaces.Discrete(2))
@@ -331,6 +331,7 @@ class CUDASimulator(Simulator):
     self._sensor_suite = SensorSuite(sensor_classes)
     self._device_keys = tuple(sorted(device_keys))
     self._state = None
+    self._last_action = None
 
   # -- Simulator interface -------------------------------------------------
 
@@ -410,9 +411,11 @@ class CUDASimulator(Simulator):
         synth.synthesize(self._params, self._state, self._device_keys))
 
   def step(self, action: Any, *args: Any, **kwargs: Any) -> Observations:
-    action = torch.as_tensor(_to_action_array(action)[None],
-                             device=self._device)
-    self._state = world_step(self._params, self._state, action)
+    action = _to_action_array(action)
+    self._state = world_step(self._params, self._state,
+                             torch.as_tensor(action[None],
+                                             device=self._device))
+    self._last_action = action
     return self._materialise(
         synth.synthesize(self._params, self._state, self._device_keys))
 
@@ -425,18 +428,46 @@ class CUDASimulator(Simulator):
 
   def render(self, mode: str = "rgb_array", *args: Any,
              **kwargs: Any) -> np.ndarray:
-    """``rgb_array``: the bird's-eye RGB frame as uint8.  The ``human``
-    dashboard needs the cameras and ``utils/graphics``, which are not
-    ported yet: it raises ``NotImplementedError``."""
-    if mode == "human":
-      raise NotImplementedError(
-          "the dashboard render is not ported to oatomobile_torch yet: it "
-          "needs sensors/cameras and utils/graphics")
+    """Renders the scene on the host as a uint8 frame.
+
+    ``rgb_array``: the bird's-eye RGB frame.
+    ``human``: the dashboard: the bird view, the front camera and the
+    LIDAR splat side by side over a state HUD (speed, step, collision flag,
+    control bars), the role of the reference's pygame dashboard.
+    """
     if self._state is None:
       return np.zeros((defaults.BIRD_VIEW_IMAGE_SIZE,
                        defaults.BIRD_VIEW_IMAGE_SIZE, 3), dtype=np.uint8)
+    if mode == "human":
+      return self._render_dashboard()
     frame = synth.bird_view_rgb(self._params, self._state)[0].cpu().numpy()
     return (np.clip(frame, 0.0, 1.0) * 255).astype(np.uint8)
+
+  def _render_dashboard(self) -> np.ndarray:
+    """The ``human`` frame: the panels synthesised on ``device`` (the
+    LIDAR through ``synth.lidar``, so the splat kernel on a card), then
+    composed with ``utils.graphics``."""
+    from oatomobile_torch.sensors import cameras  # pylint: disable=import-outside-toplevel
+    from oatomobile_torch.utils import graphics  # pylint: disable=import-outside-toplevel
+    params, state = self._params, self._state
+    # Left to right in the JAX package's frame, whose jitted dict of
+    # panels comes back with its keys sorted.
+    panels = {
+        "bird_view": synth.bird_view_rgb(params, state),
+        "front_camera_rgb": cameras.camera_rgb(params, state, 0.0),
+        "lidar": synth.lidar(params, state),
+    }
+    panels = {k: v[0].cpu().numpy() for k, v in panels.items()}
+    last = self._last_action
+    hud = {
+        "speed_mps": float(state.hero_speed[0]),
+        "step": int(state.step[0]),
+        "collided": float(state.collision[0]) > 0,
+        "throttle": float(last[0]) if last is not None else 0.0,
+        "steer": float(last[1]) if last is not None else 0.0,
+        "brake": float(last[2]) if last is not None else 0.0,
+    }
+    return graphics.compose_dashboard_frame(panels, hud)
 
   def close(self) -> None:
     self._state = None

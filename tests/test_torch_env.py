@@ -24,7 +24,6 @@ from oatomobile_torch.core.dataset import Episode
 from oatomobile_torch.core.loop import EnvironmentLoop
 from oatomobile_torch.core.registry import registry
 from oatomobile_torch.core.rl import (Env, FiniteHorizonWrapper,
-                                      LiveViewWrapper, MonitorWrapper,
                                       ReturnsMetric, SaveToDiskWrapper,
                                       StepsMetric)
 from oatomobile_torch.core.simulator import Sensor, SensorSuite, Simulator
@@ -172,12 +171,6 @@ def test_registry_is_the_ports_own():
     assert registry.get_sensor(name) is not None, name
 
 
-@pytest.mark.parametrize("wrapper", [MonitorWrapper, LiveViewWrapper])
-def test_wrappers_not_ported_raise(wrapper):
-  with pytest.raises(NotImplementedError, match="graphics"):
-    wrapper(Env(sim_fn=_FakeSimulator), output_fname="x.gif")
-
-
 # -- CARLAEnv (mirrors tests/test_env.py) ----------------------------------------
 
 
@@ -232,8 +225,10 @@ def test_render(env):
   frame = env.render(mode="rgb_array")
   assert frame.shape == (200, 200, 3) and frame.dtype == np.uint8
   assert frame.max() > 0
-  with pytest.raises(NotImplementedError):
-    env.render(mode="human")
+  # The dashboard: bird view, front camera and LIDAR over the HUD.
+  frame = env.render(mode="human")
+  assert frame.shape == (276, 720, 3) and frame.dtype == np.uint8
+  assert frame[:240].max() > 0
 
 
 def test_predictions_write_back(env):

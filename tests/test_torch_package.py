@@ -64,6 +64,10 @@ def test_import_and_rollout_without_jax():
       "from oatomobile_torch import graphs\n"
       "from oatomobile_torch.parallel import dp\n"
       "from oatomobile_torch.envs.multi_town import MultiTownBatchedEnv\n"
+      "from oatomobile_torch.sensors import cameras\n"
+      "from oatomobile_torch.utils import graphics\n"
+      "from oatomobile_torch.baselines.rulebased.autopilot import run\n"
+      "from oatomobile_torch.baselines.rulebased.blind import run\n"
       "tasks = {t: dict(_TASKS[t], num_vehicles=2) for t in "
       "('Town02_Turn0-v0', 'Town02_Straight0-v0')}\n"
       "out = evaluate_batched(tasks, horizon=2, device='cpu')\n"
@@ -78,6 +82,31 @@ def test_import_and_rollout_without_jax():
       "assert (stats['distance'] > 0).all()\n"
       "bad = [m for m in sys.modules if m.split('.')[0] in "
       "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'oatomobile_tpu')]\n"
+      "assert not bad, bad\n"
+      "print('clean')\n")
+  env = dict(os.environ, PYTHONPATH=ROOT)
+  proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                        capture_output=True, text=True, timeout=300,
+                        check=False)
+  assert proc.returncode == 0, proc.stderr
+  assert proc.stdout.strip().endswith("clean")
+
+
+def test_rendering_modules_import_without_matplotlib():
+  """The card's machine has no matplotlib, PIL or imageio: the modules
+  that render import them inside the functions that draw."""
+  code = (
+      "import sys\n"
+      "from oatomobile_torch.sensors import cameras, synth\n"
+      "from oatomobile_torch.utils import graphics\n"
+      "from oatomobile_torch.core import rl\n"
+      "from oatomobile_torch.simulators.cuda import CUDASimulator\n"
+      "from oatomobile_torch.benchmarks.carnovel.benchmark import CARNOVEL\n"
+      "from oatomobile_torch.baselines.learned.dim import train\n"
+      "from oatomobile_torch.baselines.rulebased.autopilot import run\n"
+      "from oatomobile_torch.baselines.rulebased.blind import run\n"
+      "bad = [m for m in sys.modules if m.split('.')[0] in "
+      "('matplotlib', 'PIL', 'imageio', 'jax', 'oatomobile_tpu')]\n"
       "assert not bad, bad\n"
       "print('clean')\n")
   env = dict(os.environ, PYTHONPATH=ROOT)

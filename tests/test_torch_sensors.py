@@ -1,7 +1,7 @@
 """oatomobile_torch.sensors.synth against oatomobile_tpu.sensors.synth on
 the CPU: the state sensors, the goal sensor, the actor tracker and the
-bird-view renders from the same scene state, and the sensors the port
-does not synthesise yet."""
+bird-view renders from the same scene state (the cameras and the
+game-state masks: tests/test_torch_cameras.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -60,13 +60,6 @@ def test_state_sensors_match(scenes):
     else:
       np.testing.assert_array_equal(g, w, err_msg=key)
   assert float(jnp.abs(want["velocity"]).max()) > 0.5
-
-
-@pytest.mark.parametrize("key", tsynth.NOT_PORTED)
-def test_sensors_not_ported_raise(scenes, key):
-  _, _, tp, ts = scenes
-  with pytest.raises(NotImplementedError):
-    tsynth.synthesize(tp, ts, (key,))
 
 
 BIRD_VIEW_KEYS = ("bird_view_camera_rgb", "bird_view_camera_cityscapes")

@@ -47,8 +47,11 @@ def test_dim_train_loss_falls_and_checkpoints(pack, tmp_path):
   ckpts = sorted(os.listdir(os.path.join(out, "ckpts")))
   assert ckpts == ["model-1.pt", "model-2.pt", "model-best.pt"]
   assert os.path.exists(os.path.join(out, "state", "train_state-2.pt"))
-  with pytest.raises(NotImplementedError, match="utils/graphics"):
-    tdim.train(pack, str(tmp_path / "plot"), plot_every=1, device="cpu")
+  # plot_every=1 draws a sampled plan over the BEV input every epoch.
+  plot = str(tmp_path / "plot")
+  tdim.train(pack, plot, batch_size=4, num_epochs=1, max_steps_per_epoch=1,
+             plot_every=1, device="cpu")
+  assert os.path.getsize(os.path.join(plot, "plots", "epoch_0.png")) > 0
 
 
 def test_dim_resident_loader_matches_streaming(pack, tmp_path):
