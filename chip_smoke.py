@@ -104,7 +104,9 @@ Needs one CUDA card and the CUDA toolkit (nvcc).  It:
      the graph's replays alone, the captures' seconds and reserved bytes,
      and per mode the device's busy ms, kernels and idle share a step
      (``utils.profiling.device_busy`` over GRAPH_PROFILE_STEPS more steps,
-     against the eager runs' median step and the replays' step);
+     against the eager runs' median step and the replays' step), and the
+     phase's seconds by part (set-up, runs in turn, replays alone,
+     profiler passes);
  17. drives the cameras, the game-state masks and the human render: holds
      the four camera class images and the 64 m game state of 24 Town01
      scenes (16 NPCs, 8 pedestrians, after 20 autopilot steps) and the
@@ -121,7 +123,29 @@ Needs one CUDA card and the CUDA toolkit (nvcc).  It:
      game state among its sensors through the AutopilotAgent with
      ``render("human")`` after the reset and every step (uint8 276x720x3
      frames, two splats a step: the sensor's and the render's);
- 18. prints the seconds of each phase and the total (the script must
+ 18. drives the device mesh (``parallel.mesh``): (a) with NCCL at world
+     size 1 on the card, ``BatchedEnv(mesh=make_mesh())``'s 1024-scene
+     autopilot rollout with the LIDAR (MESH_STEPS steps, one splat launch
+     a step) against the mesh-less rollout, and one DIM update at
+     published widths with ``mesh=`` against one without, each bit for
+     bit; (b) MESH_RANKS ranks spawned on the one card over gloo (each
+     under MESH_RANK_SECONDS, a failed or hung rank fails the script): the
+     sharded 64-scene rollout with the LIDAR, gathered, against the single
+     process (hero_xy, stats and the final LIDAR bit for bit, the same
+     global values on every rank), and a dp = 2 DIM update against the
+     unsharded one (loss and gradients within MESH_UPDATE_RTOL, the
+     parameters as phase 14 holds them);
+ 19. holds the captured single scene (the step, the warm-up and the
+     AutopilotAgent's policy replayed as CUDA graphs) against the same
+     simulator with every step eager, from the same seed: every step's
+     observations bit for bit over SINGLE_SCENE_STEPS steps, and with the
+     front camera, the game state and ``render("human")`` after the reset
+     and every step (frames too) over CAMERA_SINGLE_SCENE_STEPS; prints
+     the steps/s of both and the splat's launches;
+ 20. measures the eager DIM update's device busy time and idle share at
+     batch 512 (published widths, the batch on the card) with
+     ``utils.profiling.device_busy``;
+ 21. prints the seconds of each phase and the total (the script must
      stay well inside its time limit), one JSON line of the kernels and,
      last, the ok/device line.
 
@@ -202,11 +226,14 @@ COLLECT_BREAKDOWN_STEPS = 120
 # steps of each run per path (the eager side is the slow one: 50 ms an
 # autopilot step, up to 0.6 s a DIM step on the slower hosts), and the
 # steps each mode runs under the profiler.
-GRAPH_PAIRS = 2
+GRAPH_PAIRS = 1
 GRAPH_STEPS = {"autopilot": 64, "collection": 32, "carnovel": 64,
                "dim": 8}
-GRAPH_PROFILE_STEPS = {"autopilot": 16, "collection": 16, "carnovel": 16,
-                       "dim": 4}
+GRAPH_PROFILE_STEPS = {"autopilot": 8, "collection": 8, "carnovel": 8,
+                       "dim": 2}
+# Seconds of phase 16 by part (set-up, the runs in turn, the replays
+# alone, the profiler passes), summed over its paths.
+GRAPH_SPLIT = {}
 CARNOVEL_GRAPH_TOWN = "Town04"
 # The cameras and the game-state masks: the card against the CPU on 24
 # Town01 scenes (16 NPCs, 8 pedestrians) after 20 autopilot steps, where
@@ -227,6 +254,26 @@ CAMERA_SINGLE_SCENE_STEPS = 20
 # resolve of 3 surfaces.
 CAMERA_OPS_PER_SLAB = 31
 CAMERA_OPS_PER_PIXEL = 4 + 6 * 14 + 3 * 10 + 2
+
+# The device mesh: (a) NCCL at world size 1 on the card, the mesh's
+# 1024-scene autopilot rollout with the LIDAR against the mesh-less one and
+# one DIM update with and without the mesh (bit for bit); (b) two ranks on
+# the one card over gloo, spawned, each under MESH_RANK_SECONDS: the
+# sharded rollout gathered against the single process, and a dp = 2 DIM
+# update against the unsharded one (loss and gradients within
+# MESH_UPDATE_RTOL; the parameters as the card-vs-CPU update check holds
+# them).  The updates: published widths, a dense 200x200 LIDAR batch.
+MESH_STEPS = 64
+MESH_RANKS, MESH_RANK_SCENES, MESH_RANK_STEPS = 2, 64, 32
+MESH_RANK_SECONDS = 240
+MESH_TIMEOUT_SECONDS = 60
+MESH_UPDATE_BATCH, MESH_UPDATE_RTOL = 64, 1e-5
+# (c) The single scene captured against eager (every step's observations
+# bit for bit), with the autopilot over SINGLE_SCENE_STEPS steps and with
+# render("human") after the reset and every step over
+# CAMERA_SINGLE_SCENE_STEPS.  (d) The eager DIM update's device idle
+# share at the trainers' batch, over IDLE_UPDATES profiled updates.
+IDLE_BATCH, IDLE_UPDATES = 512, 3
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bandwidth and
 # FP32 rate outside the tensor cores.
@@ -673,18 +720,17 @@ def check_collect_card_against_cpu(workdir: str) -> None:
         launches, COLLECT_CHECK["num_steps"]))
 
 
-def update_batch():
-  """A packed-format batch of UPDATE_BATCH: dense uint8 LIDAR,
-  forward-moving futures, some stopped scenes."""
+def update_batch(b: int = UPDATE_BATCH, size: int = UPDATE_SIZE,
+                 seed: int = 1):
+  """A packed-format batch of ``b``: dense uint8 ``size`` x ``size``
+  LIDAR, forward-moving futures, some stopped scenes."""
   import numpy as np  # pylint: disable=import-outside-toplevel
-  rs = np.random.RandomState(1)
-  b = UPDATE_BATCH
+  rs = np.random.RandomState(seed)
   speed = rs.uniform(0, 8, (b, 1)) * (rs.uniform(size=(b, 1)) < 0.8)
   steps = np.cumsum(rs.uniform(0.5, 1.5, (b, 80, 3)) * [0.1, 0.02, 0],
                     axis=1) * np.maximum(speed, 0.05)[:, :, None]
   return dict(
-      lidar=rs.randint(0, 256, (b, UPDATE_SIZE, UPDATE_SIZE, 2)).astype(
-          np.uint8),
+      lidar=rs.randint(0, 256, (b, size, size, 2)).astype(np.uint8),
       is_at_traffic_light=rs.randint(0, 2, (b, 1)).astype(np.float32),
       traffic_light_state=rs.randint(0, 3, (b, 1)).astype(np.float32),
       velocity=np.concatenate([speed, rs.normal(0, 0.3, (b, 1)),
@@ -1034,6 +1080,7 @@ def compare_eager_and_graph(name: str, scenes: int, steps: int,
   graphs.captures, graphs.capture_seconds, graphs.capture_bytes = 0, 0.0, 0
   ms = {"eager": [], "graph": []}
   launches, diffs, first = [], {}, None
+  t0 = time.perf_counter()
   for _ in range(GRAPH_PAIRS):
     for mode in ms:
       bev_cuda.launches = 0
@@ -1048,8 +1095,10 @@ def compare_eager_and_graph(name: str, scenes: int, steps: int,
         diff = _max_diff(value, first[key])
         if diff:
           diffs[key] = max(diffs.get(key, 0.0), diff)
+  t1 = time.perf_counter()
   # The graph's replays alone: a run that captures holds the capture too.
   _, seconds = profiling.timed(profile, "graph", steps)
+  t2 = time.perf_counter()
   step_ms = {"eager": statistics.median(ms["eager"]),
              "graph": 1e3 * seconds / steps}
   device = {}
@@ -1071,6 +1120,9 @@ def compare_eager_and_graph(name: str, scenes: int, steps: int,
                           device[mode]["step_ms"])
       source = "CUDA events around the steps (the profiler saw no kernel)"
     device[mode]["source"] = source
+  for part, seconds in (("runs in turn", t1 - t0), ("replays alone", t2 - t1),
+                        ("profiler passes", time.perf_counter() - t2)):
+    GRAPH_SPLIT[part] = GRAPH_SPLIT.get(part, 0.0) + seconds
   print("compiled rollout, {} ({} scenes, {} steps a run, {} pairs in turn, "
         "eager then graph): ms a step eager {} / graph {} (a graph run that "
         "captures holds {} eager warm-up steps and the capture); env steps/s "
@@ -1113,6 +1165,8 @@ def drive_compiled_paths() -> None:
   from oatomobile_torch.envs.batched import BatchedEnv  # pylint: disable=import-outside-toplevel
   from oatomobile_torch.ops import bev_cuda  # pylint: disable=import-outside-toplevel
   from oatomobile_torch.sim import autopilot_policy  # pylint: disable=import-outside-toplevel
+  GRAPH_SPLIT.clear()
+  t_start = time.perf_counter()
 
   def env_paths(env, **kwargs):
     def rollout(mode, steps):
@@ -1195,6 +1249,10 @@ def drive_compiled_paths() -> None:
       splats=True)
   del env
   torch.cuda.empty_cache()
+  GRAPH_SPLIT["set-up"] = time.perf_counter() - t_start - sum(
+      GRAPH_SPLIT.values())
+  print("compiled rollout, seconds by part over the four paths: {}".format(
+      ", ".join("{} {:.1f}".format(k, v) for k, v in GRAPH_SPLIT.items())))
 
 
 def check_cameras_card_against_cpu() -> None:
@@ -1408,6 +1466,409 @@ def drive_camera_single_scene() -> int:
          "human render (two a step and two at reset expected)".format(
              launches, CAMERA_SINGLE_SCENE_STEPS))
   return launches
+
+
+def mesh_dim_update(mesh, batch) -> tuple:
+  """One DIM update at published widths (weights from generator 0, the
+  trainer's first key) over ``mesh`` (None: unsharded): (loss, the global
+  gradients, the updated parameters), on the CPU."""
+  import torch  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch import rng as rng_lib  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.baselines.learned.dim import train as dim_train  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.models import ImitativeModel  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.parallel import dp  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.parallel import mesh as mesh_lib  # pylint: disable=import-outside-toplevel
+  device = "cuda" if mesh is None else mesh.device
+  model = ImitativeModel((4, 2), (100, 100),
+                         generator=torch.Generator().manual_seed(0),
+                         device=device)
+  loss_fn = dim_train.make_loss_fn()
+  key = rng_lib.fold_in(rng_lib.PRNGKey(42, device), 1)
+  # The global gradient, as the update takes it.
+  params = list(model.parameters())
+  step_key = rng_lib.split(key)[1]
+  if mesh is None:
+    loss = loss_fn(model, batch, step_key)
+  else:
+    total = len(batch["lidar"])
+    with mesh_lib.global_rows(*mesh_lib.batch_rows(mesh, total), total):
+      loss = loss_fn(model, mesh_lib.shard_batch(mesh, batch), step_key)
+  grads = list(torch.autograd.grad(loss, params))
+  if mesh is not None:
+    dp._all_reduce_mean_(mesh, grads)  # pylint: disable=protected-access
+  grads = {n: g.cpu() for (n, _), g in zip(model.named_parameters(), grads)}
+  state = dp.replicate_state(mesh, dp.TrainState.create(
+      model, dp.adam(model, 1e-3), key))
+  state, loss = dp.make_update_fn(loss_fn, mesh=mesh)(state, batch)
+  return float(loss), grads, {k: v.cpu() for k, v in
+                              model.state_dict().items()}
+
+
+def compare_updates(got: tuple, want: tuple) -> tuple:
+  """(loss rel diff, grads' largest scaled diff, parameters beyond
+  UPDATE_RTOL / UPDATE_ATOL, of them with a resolved gradient, elements)
+  of two ``mesh_dim_update`` results."""
+  import torch  # pylint: disable=import-outside-toplevel
+  (loss_a, g_a, sd_a), (loss_b, g_b, sd_b) = got, want
+  grad_err = max(float((g_a[k] - g_b[k]).abs().max() /
+                       g_b[k].abs().max().clamp_min(1e-30)) for k in g_b)
+  off = resolved_off = total = 0
+  for k in g_b:
+    bad = ~torch.isclose(sd_a[k], sd_b[k], rtol=UPDATE_RTOL,
+                         atol=UPDATE_ATOL)
+    resolved = g_b[k].abs() >= UPDATE_UNRESOLVED * g_b[k].abs().max()
+    off += int(bad.sum())
+    resolved_off += int((bad & resolved).sum())
+    total += bad.numel()
+  return abs(loss_a - loss_b) / abs(loss_b), grad_err, off, resolved_off, \
+      total
+
+
+def _state_summary(env, final, stats) -> dict:
+  """The rollout's returns a mesh must gather, and the final LIDAR, on
+  the CPU (the LIDAR of this rank's scenes, gathered under a mesh)."""
+  from oatomobile_torch.parallel import mesh as mesh_lib  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.sensors import synth  # pylint: disable=import-outside-toplevel
+  lidar = synth.lidar(env.params, env._state)  # pylint: disable=protected-access
+  if env.mesh is not None:
+    lidar = mesh_lib.gather_batch(env.mesh, lidar)
+  out = {"hero_xy": final.hero_xy, "npc_xy": final.npc_xy, "rng": final.rng,
+         "lidar": lidar, **{"stats_" + k: v for k, v in stats.items()}}
+  return {k: v.cpu() for k, v in out.items()}
+
+
+def drive_mesh_world_one() -> int:
+  """(a) NCCL at world size 1 on the card: ``BatchedEnv(mesh=make_mesh())``
+  against the mesh-less env (the 1024-scene autopilot path with the LIDAR,
+  MESH_STEPS steps), and one DIM update with ``mesh=`` against one
+  without, bit for bit; returns the splat's launches in the mesh rollout."""
+  import datetime  # pylint: disable=import-outside-toplevel
+  import torch  # pylint: disable=import-outside-toplevel
+  import torch.distributed as dist  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.envs.batched import BatchedEnv  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import bev_cuda  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.parallel import mesh as mesh_lib  # pylint: disable=import-outside-toplevel
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_") as store:
+    dist.init_process_group(
+        "nccl", init_method="file://" + os.path.join(store, "store"),
+        rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_SECONDS))
+    try:
+      mesh = mesh_lib.make_mesh()
+      runs, seconds = {}, {}
+      for name, m in (("mesh", mesh), ("plain", None)):
+        env = BatchedEnv(TOWN, BATCH, num_vehicles=VEHICLES,
+                         route_capacity=1024, seed=0, mesh=m, device="cuda")
+        bev_cuda.launches = 0
+        t0 = time.perf_counter()
+        final, _, stats = env.rollout(MESH_STEPS, compute=("lidar",))
+        float(stats["distance"].sum())
+        seconds[name] = time.perf_counter() - t0
+        if name == "mesh":
+          launches = bev_cuda.launches
+        runs[name] = _state_summary(env, final, stats)
+        del env, final, stats
+      diffs = {k: _max_diff(runs["mesh"][k], runs["plain"][k])
+               for k in runs["plain"]}
+      # The update on the card is deterministic with cuDNN's deterministic
+      # algorithms, so the two must be equal bit for bit.
+      deterministic = torch.backends.cudnn.deterministic
+      torch.backends.cudnn.deterministic = True
+      try:
+        batch = update_batch(MESH_UPDATE_BATCH, 200, seed=2)
+        with_mesh = mesh_dim_update(mesh, batch)
+        without = mesh_dim_update(None, batch)
+      finally:
+        torch.backends.cudnn.deterministic = deterministic
+      update_equal = (with_mesh[0] == without[0] and all(
+          torch.equal(a, b) for i in (1, 2)
+          for a, b in zip(with_mesh[i].values(), without[i].values())))
+      backend = dist.get_backend()
+    finally:
+      dist.destroy_process_group()
+  print("mesh (a) {} at world size 1, mesh {}: {} scenes x {} steps with "
+        "the LIDAR (first rollout: capture included) {:.3f}s with the mesh, "
+        "{:.3f}s without; bev_splat launches with the mesh={}; bit-equal "
+        "(final state, stats, final LIDAR): {}{}; one DIM update (batch {}, "
+        "published widths) with mesh= and without bit-equal: {} (loss {})"
+        .format(backend, mesh.shape, BATCH, MESH_STEPS, seconds["mesh"],
+                seconds["plain"], launches, not any(diffs.values()),
+                "" if not any(diffs.values()) else " (max differences "
+                "{})".format(diffs), MESH_UPDATE_BATCH, update_equal,
+                with_mesh[0]))
+  if any(diffs.values()) or not update_equal:
+    fail("the world-size-1 mesh disagrees with the mesh-less run")
+  if launches != MESH_STEPS:
+    fail("bev_splat launched {} times in {} mesh steps".format(launches,
+                                                               MESH_STEPS))
+  return launches
+
+
+def mesh_rank(rank: int, world: int, store: str, out: str) -> None:
+  """One spawned rank of (b): gloo on ``cuda:0``; the sharded rollout's
+  gathered returns and a dp DIM update, saved to ``out/rank{rank}.pt``."""
+  import datetime  # pylint: disable=import-outside-toplevel
+  import torch  # pylint: disable=import-outside-toplevel
+  import torch.distributed as dist  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.envs.batched import BatchedEnv  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import bev_cuda  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.parallel import mesh as mesh_lib  # pylint: disable=import-outside-toplevel
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  dist.init_process_group(
+      "gloo", init_method=store, rank=rank, world_size=world,
+      timeout=datetime.timedelta(seconds=MESH_TIMEOUT_SECONDS))
+  mesh = mesh_lib.make_mesh(device="cuda:0")
+  env = BatchedEnv(TOWN, MESH_RANK_SCENES, num_vehicles=VEHICLES,
+                   route_capacity=1024, seed=0, mesh=mesh)
+  bev_cuda.launches = 0
+  t0 = time.perf_counter()
+  final, _, stats = env.rollout(MESH_RANK_STEPS, compute=("lidar",))
+  seconds = time.perf_counter() - t0
+  launches = bev_cuda.launches
+  result = {"rollout": _state_summary(env, final, stats),
+            "launches": launches, "seconds": seconds,
+            "shape": mesh.shape, "backend": dist.get_backend(),
+            "update": mesh_dim_update(mesh, update_batch(
+                MESH_UPDATE_BATCH, 200, seed=2))}
+  torch.save(result, os.path.join(out, "rank{}.pt".format(rank)))
+  dist.barrier()
+  dist.destroy_process_group()
+
+
+def drive_mesh_two_ranks() -> int:
+  """(b) MESH_RANKS spawned ranks on the one card over gloo: the sharded
+  autopilot rollout, gathered, against the single process (bit for bit),
+  and the dp DIM update against the unsharded one; returns rank 0's
+  splat launches."""
+  import torch  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.envs.batched import BatchedEnv  # pylint: disable=import-outside-toplevel
+  root = os.path.dirname(os.path.abspath(__file__))
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out:
+    store = "file://" + os.path.join(out, "store")
+    code = ("import sys; sys.path.insert(0, {!r}); import chip_smoke; "
+            "chip_smoke.mesh_rank({{}}, {}, {!r}, {!r})".format(
+                root, MESH_RANKS, store, out))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", code.format(r)],
+                              cwd=root, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT)
+             for r in range(MESH_RANKS)]
+    logs = []
+    try:
+      for proc in procs:
+        logs.append(proc.communicate(
+            timeout=max(1.0, MESH_RANK_SECONDS -
+                        (time.perf_counter() - t0)))[0].decode())
+    except subprocess.TimeoutExpired:
+      logs = ["(timed out after {} s)".format(MESH_RANK_SECONDS)]
+    finally:
+      for proc in procs:
+        if proc.poll() is None:
+          proc.kill()
+          proc.wait()
+    spawned = time.perf_counter() - t0
+    codes = [proc.returncode for proc in procs]
+    if any(codes):
+      fail("a mesh rank failed ({}): {}".format(
+          codes, "\n".join(log[-3000:] for log in logs)))
+    ranks = [torch.load(os.path.join(out, "rank{}.pt".format(r)),
+                        weights_only=False) for r in range(MESH_RANKS)]
+  env = BatchedEnv(TOWN, MESH_RANK_SCENES, num_vehicles=VEHICLES,
+                   route_capacity=1024, seed=0, device="cuda")
+  final, _, stats = env.rollout(MESH_RANK_STEPS, compute=("lidar",))
+  want = _state_summary(env, final, stats)
+  del env, final, stats
+  got = ranks[0]["rollout"]
+  diffs = {k: _max_diff(got[k], want[k]) for k in want}
+  same_on_ranks = all(torch.equal(r["rollout"][k], got[k])
+                      for r in ranks[1:] for k in got)
+  hero_diff = float((got["hero_xy"] - want["hero_xy"]).abs().max())
+  lidar_pixels = int((got["lidar"] != want["lidar"]).any(-1).sum())
+  batch = update_batch(MESH_UPDATE_BATCH, 200, seed=2)
+  loss_err, grad_err, off, resolved_off, total = compare_updates(
+      ranks[0]["update"], mesh_dim_update(None, batch))
+  launches = ranks[0]["launches"]
+  print("mesh (b) {} ranks on one card over {}, mesh {} each, spawned and "
+        "joined in {:.1f}s; {} scenes x {} steps with the LIDAR ({:.3f}s on "
+        "rank 0, capture included): gathered against one process: hero_xy "
+        "max abs diff {}, final LIDAR differing pixels {}, all returns "
+        "bit-equal {}{}; the ranks hold the same global values: {}; "
+        "bev_splat launches on rank 0={}".format(
+            MESH_RANKS, ranks[0]["backend"], ranks[0]["shape"], spawned,
+            MESH_RANK_SCENES, MESH_RANK_STEPS, ranks[0]["seconds"],
+            hero_diff, lidar_pixels, not any(diffs.values()),
+            "" if not any(diffs.values()) else " (max differences "
+            "{})".format(diffs), same_on_ranks, launches))
+  print("mesh (b) dp={} DIM update (batch {}, published widths) against "
+        "the unsharded one: loss rel diff {} (limit {}); global gradients "
+        "max scaled diff {} (limit {}); updated params beyond rtol {} / "
+        "atol {}: {} of {} elements, {} of them with |g| at or above {} of "
+        "their tensor's largest (limit 0; the rest at most {} of the "
+        "elements)".format(MESH_RANKS, MESH_UPDATE_BATCH, loss_err,
+                           MESH_UPDATE_RTOL, grad_err, MESH_UPDATE_RTOL,
+                           UPDATE_RTOL, UPDATE_ATOL, off, total,
+                           resolved_off, UPDATE_UNRESOLVED,
+                           UPDATE_UNRESOLVED_FRACTION))
+  if any(diffs.values()) or not same_on_ranks:
+    fail("the two-rank rollout disagrees with the single process")
+  if launches != MESH_RANK_STEPS:
+    fail("bev_splat launched {} times in {} steps on rank 0".format(
+        launches, MESH_RANK_STEPS))
+  if (loss_err > MESH_UPDATE_RTOL or grad_err > MESH_UPDATE_RTOL or
+      resolved_off or off > UPDATE_UNRESOLVED_FRACTION * total):
+    fail("the dp DIM update disagrees with the unsharded update")
+  return launches
+
+
+class _EagerStep:
+  """``graphs.CapturedStep``'s interface, every call eager: the single
+  scene's yardstick."""
+
+  def __init__(self, fn, device, pool=None) -> None:
+    del device, pool
+    self._fn = fn
+
+  def __call__(self):
+    return self._fn()
+
+
+def single_scene_run(eager: bool, steps: int, render: bool) -> dict:
+  """The single-scene API on the card: SINGLE_SCENE_TASK with the default
+  sensors (and the front camera and the game state with ``render``), the
+  AutopilotAgent for ``steps`` steps, ``render("human")`` after the reset
+  and every step with ``render``; every step's observations on the host,
+  the seconds with and without the reset and the steps' split (each
+  part ends in a copy to the host, so the host's clock times it), the
+  splat's launches."""
+  import numpy as np  # pylint: disable=import-outside-toplevel
+  import torch  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch import graphs  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.baselines.rulebased import AutopilotAgent  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.benchmarks.carnovel.benchmark import CARNOVEL  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import bev_cuda  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.simulators.cuda import defaults  # pylint: disable=import-outside-toplevel
+  sensors = tuple(defaults.CARLA_SENSORS) + (
+      ("front_camera_rgb", "game_state") if render else ())
+  captured_step = graphs.CapturedStep
+  if eager:
+    graphs.CapturedStep = _EagerStep
+  try:
+    env = CARNOVEL(device="cuda").load(SINGLE_SCENE_TASK, sensors=sensors)
+    env.seed(0)
+    bev_cuda.launches = 0
+    t0 = time.perf_counter()
+    obs = env.reset()
+    trace = [{k: np.array(v) for k, v in obs.items()}]
+    if render:
+      trace[-1]["frame"] = env.render(mode="human")
+    t1 = time.perf_counter()
+    agent = AutopilotAgent(env)
+    split = {"agent": 0.0, "env step": 0.0, "render": 0.0}
+    for _ in range(steps):
+      ta = time.perf_counter()
+      action = agent.act(obs)
+      tb = time.perf_counter()
+      obs, _, done, _ = env.step(action)
+      tc = time.perf_counter()
+      split["agent"] += tb - ta
+      split["env step"] += tc - tb
+      trace.append({k: np.array(v) for k, v in obs.items()})
+      if render:
+        trace[-1]["frame"] = env.render(mode="human")
+        split["render"] += time.perf_counter() - tc
+      if done:
+        break
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = bev_cuda.launches
+    env.close()
+  finally:
+    graphs.CapturedStep = captured_step
+  n = len(trace) - 1
+  return {"trace": trace, "seconds": t2 - t0, "step_seconds": t2 - t1,
+          "steps": n, "launches": launches,
+          "split_ms": {k: round(1e3 * v / n, 3) for k, v in split.items()
+                       if v}}
+
+
+def compare_single_scene() -> int:
+  """(c) The captured single scene against the eager one from the same
+  seed, without and with the human render: every step's observations
+  (and frames) bit for bit, the steps/s of each; returns the captured
+  run's splat launches (autopilot, no render)."""
+  import numpy as np  # pylint: disable=import-outside-toplevel
+  launches = None
+  for render, steps in ((False, SINGLE_SCENE_STEPS),
+                        (True, CAMERA_SINGLE_SCENE_STEPS)):
+    runs = {mode: single_scene_run(mode == "eager", steps, render)
+            for mode in ("eager", "captured")}
+    eager, captured = runs["eager"], runs["captured"]
+    differing = sorted({k for a, b in zip(eager["trace"], captured["trace"])
+                        for k in b if not np.array_equal(a[k], b[k])})
+    same = eager["steps"] == captured["steps"] and not differing
+    print("single scene {} (sensors: default{}), AutopilotAgent{}: "
+          "captured {} steps in {:.3f}s = {:.1f} steps/s ({:.1f} without "
+          "the reset and its warm-up), eager {:.3f}s = {:.1f} steps/s "
+          "({:.1f} without the reset); ms a step captured {} / eager {}; "
+          "bev_splat launches captured {} / "
+          "eager {}; observations{} bit-equal over every step: {}{}".format(
+              SINGLE_SCENE_TASK, " + front camera, game state" if render
+              else "", " with render('human') after the reset and every step"
+              if render else "", captured["steps"], captured["seconds"],
+              captured["steps"] / captured["seconds"],
+              captured["steps"] / captured["step_seconds"],
+              eager["seconds"], eager["steps"] / eager["seconds"],
+              eager["steps"] / eager["step_seconds"], captured["split_ms"],
+              eager["split_ms"], captured["launches"],
+              eager["launches"], " and frames" if render else "", same,
+              " (differing: {})".format(differing) if differing else ""))
+    if not same:
+      fail("the captured single scene differs from the eager one")
+    per_step = 2 if render else 1
+    if captured["launches"] != per_step * (captured["steps"] + 1):
+      fail("bev_splat launched {} times in a captured {}-step single scene"
+           .format(captured["launches"], captured["steps"]))
+    if launches is None:
+      launches = captured["launches"]
+  return launches
+
+
+def update_idle_share() -> None:
+  """(d) The eager DIM update's device busy time and idle share at the
+  trainers' batch (published widths, the batch resident on the card):
+  ``utils.profiling.device_busy`` over IDLE_UPDATES updates against the
+  median ms of one unprofiled update on CUDA events."""
+  import torch  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch import rng as rng_lib  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.baselines.learned.dim import train as dim_train  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.models import ImitativeModel  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.parallel import dp  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.utils import profiling  # pylint: disable=import-outside-toplevel
+  model = ImitativeModel((4, 2), (100, 100),
+                         generator=torch.Generator().manual_seed(0),
+                         device="cuda")
+  state = dp.TrainState.create(model, dp.adam(model, 1e-3),
+                               rng_lib.PRNGKey(42, "cuda"))
+  update = dp.make_update_fn(dim_train.make_loss_fn())
+  batch = {k: torch.as_tensor(v, device="cuda")
+           for k, v in update_batch(IDLE_BATCH, 200, seed=3).items()}
+  step_ms = event_ms(lambda: update(state, batch))
+
+  def run():
+    for _ in range(IDLE_UPDATES):
+      update(state, batch)
+
+  busy = profiling.device_busy(run, IDLE_UPDATES, step_ms)
+  print("DIM update idle share (batch {}, published widths, eager, batch "
+        "resident on the card): {:.3f} ms an update (median of {} on CUDA "
+        "events); over {} profiled updates the device busy {:.3f} ms and "
+        "{:.1f} kernels an update, idle share {:.4f}".format(
+            IDLE_BATCH, step_ms, TIMED_UPDATES, IDLE_UPDATES,
+            busy["device_busy_ms_per_step"], busy["kernels_per_step"],
+            busy["idle_share"]))
+  if busy["kernels_per_step"] == 0:
+    fail("the profiler saw no kernel of the DIM update")
 
 
 def main() -> None:
@@ -1643,6 +2104,20 @@ def main() -> None:
   launches_camera_single = drive_camera_single_scene()
   lap("camera single scene")
 
+  # -- 16. The device mesh ----------------------------------------------------------
+  launches_mesh = drive_mesh_world_one()
+  lap("mesh at world size 1 (NCCL)")
+  launches_mesh_ranks = drive_mesh_two_ranks()
+  lap("mesh over two ranks (gloo)")
+
+  # -- 17. The captured single scene against the eager one ---------------------------
+  launches_single_captured = compare_single_scene()
+  lap("single scene captured against eager")
+
+  # -- 18. The eager DIM update's idle share -------------------------------------------
+  update_idle_share()
+  lap("DIM update idle share")
+
   kernels = [{
       "name": "bev_splat",
       "status": "ported",
@@ -1657,6 +2132,9 @@ def main() -> None:
       "launches_camera_rollout": launches_camera,
       "launches_camera_collect": launches_camera_collect,
       "launches_camera_single_scene": launches_camera_single,
+      "launches_mesh_rollout": launches_mesh,
+      "launches_mesh_rollout_rank0": launches_mesh_ranks,
+      "launches_single_scene_captured": launches_single_captured,
       "max_abs_err": max_abs_err,
       "ms": ms,
       "plain_ms": plain_ms,

@@ -21,12 +21,13 @@ from oatomobile_torch import device as device_lib
 from oatomobile_torch import rng as rng_lib
 from oatomobile_torch.baselines.learned.dim.train import (
     MODALITIES, VELOCITY_DROPOUT, _load_resident, as_device_batch,
-    best_val_from_logs, dropout_velocity, make_loaders, run_epoch, val_mean)
+    best_val_from_logs, dropout_velocity, make_loaders, rank_loggers,
+    run_epoch, train_mesh, val_mean)
 from oatomobile_torch.datasets.carla import CARLADataset
 from oatomobile_torch.models.cil import BehaviouralModel
 from oatomobile_torch.parallel import dp
+from oatomobile_torch.parallel import mesh as mesh_lib
 from oatomobile_torch.utils.checkpoint import Checkpointer
-from oatomobile_torch.utils.loggers import JSONLLogger, TerminalLogger
 
 
 def mode_labels(player_future: torch.Tensor) -> torch.Tensor:
@@ -91,16 +92,18 @@ def train(
     oversample_restarts: int = 3,
     device="cuda",
 ) -> dp.TrainState:
-  """Runs L1 behavioural-cloning training on ``device`` (``use_mesh`` has
-  no effect: one device).  A held-out val L1 is evaluated every epoch
-  (packed datasets) and the best model is saved as ``model-best``; a run
-  resumes from the newest periodic checkpoint in ``output_dir`` (the
-  optimiser restarts, the best val loss is read back from the logs)."""
-  del use_mesh
+  """Runs L1 behavioural-cloning training on ``device``.  A held-out val
+  L1 is evaluated every epoch (packed datasets) and the best model is
+  saved as ``model-best``; a run resumes from the newest periodic
+  checkpoint in ``output_dir`` (the optimiser restarts, the best val loss
+  is read back from the logs).  ``use_mesh``: data-parallel over
+  ``make_mesh()`` with a world of more than one, as the DIM trainer's."""
   device = device_lib.resolve(device)
+  mesh = train_mesh(use_mesh, device)
+  if mesh is not None:
+    device = mesh.device
   os.makedirs(output_dir, exist_ok=True)
-  loggers = [TerminalLogger(label="cil"),
-             JSONLLogger(os.path.join(output_dir, "logs"), "cil_train")]
+  loggers = rank_loggers("cil", os.path.join(output_dir, "logs"))
 
   model = BehaviouralModel(output_shape=(output_length, 2),
                            generator=torch.Generator().manual_seed(seed),
@@ -109,7 +112,7 @@ def train(
   state = dp.TrainState.create(model, dp.adam(model, learning_rate),
                                rng_lib.fold_in(rng, 1))
   loss_fn = make_loss_fn(velocity_dropout)
-  update = dp.make_update_fn(loss_fn)
+  update = dp.make_update_fn(loss_fn, mesh=mesh)
 
   checkpointer = Checkpointer(os.path.join(output_dir, "ckpts"))
   have_val = CARLADataset.is_packed(dataset_dir) and val_fraction > 0
@@ -120,7 +123,9 @@ def train(
     checkpointer.load(last, state.model)
     start_epoch = last + 1
     best_val = best_val_from_logs(output_dir)
-  resident, resident_n = _load_resident(dataset_dir, device_data, device)
+  state = dp.replicate_state(mesh, state)
+  resident, resident_n = _load_resident(dataset_dir,
+                                        device_data and mesh is None, device)
   epoch_loader, val_loader = make_loaders(
       dataset_dir, resident, resident_n, batch_size, seed, have_val,
       val_fraction, oversample_restarts, mode=True)
@@ -135,17 +140,20 @@ def train(
         "sec": round(time.time() - t0, 2),
         "steps": state.step,
     }
+    main = mesh_lib.is_main()
     if have_val:
-      val = val_mean(loss_fn, state.model, val_loader)
+      val = val_mean(loss_fn, state.model, val_loader, mesh)
       if val is not None:
         record["val_loss"] = val
         if val < best_val:
           best_val = val
-          checkpointer.save_named("best", state.model.state_dict())
+          if main:
+            checkpointer.save_named("best", state.model.state_dict())
           record["val_best"] = True
     for logger in loggers:
       logger.write(record)
-    if (epoch + 1) % save_model_frequency == 0 or epoch == num_epochs - 1:
+    if main and ((epoch + 1) % save_model_frequency == 0 or
+                 epoch == num_epochs - 1):
       checkpointer.save(epoch, state.model.state_dict())
   for logger in loggers:
     logger.close()

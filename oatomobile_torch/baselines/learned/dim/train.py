@@ -25,6 +25,7 @@ from oatomobile_torch import rng as rng_lib
 from oatomobile_torch.datasets.carla import CARLADataset
 from oatomobile_torch.models.dim import ImitativeModel
 from oatomobile_torch.parallel import dp
+from oatomobile_torch.parallel import mesh as mesh_lib
 from oatomobile_torch.utils.checkpoint import Checkpointer
 from oatomobile_torch.utils.loggers import JSONLLogger, TerminalLogger
 
@@ -77,8 +78,8 @@ def dropout_velocity(context, rng: torch.Tensor, rate: float):
   if rate <= 0.0:
     return context
   velocity = context["velocity"]
-  keep = (rng_lib.uniform(rng.to(velocity.device),
-                          (velocity.shape[0], 1)) < 1.0 - rate)
+  keep = (mesh_lib.draw_rows(rng_lib.uniform, rng.to(velocity.device),
+                             (velocity.shape[0], 1)) < 1.0 - rate)
   return dict(context, velocity=velocity * keep.to(torch.float32))
 
 
@@ -127,7 +128,8 @@ def member_nll(model: ImitativeModel, y: torch.Tensor, context,
   into the noise key and the dropout key, as in the JAX trainer."""
   keys = rng_lib.split(rng.to(y.device))
   context = dropout_velocity(context, keys[1], velocity_dropout)
-  noisy = y + NOISE_STD * rng_lib.normal(keys[0], y.shape)
+  noisy = y + NOISE_STD * mesh_lib.draw_rows(rng_lib.normal, keys[0],
+                                             y.shape)
   return -torch.mean(model.log_prob(noisy, **context))
 
 
@@ -210,10 +212,43 @@ def run_epoch(update, state, loader, max_steps: int):
   return state, mean
 
 
-def val_mean(loss_fn, model, val_loader):
-  """Mean loss over the val batches, or None without any."""
+def val_mean(loss_fn, model, val_loader, mesh=None):
+  """Mean loss over the val batches, or None without any.  Under a mesh
+  every rank evaluates the whole of each val batch, and the losses are
+  summed over ``mp`` (an ensemble's members' shares), so the value is the
+  global mean on every rank."""
   losses = [eval_loss(loss_fn, model, batch) for batch in val_loader()]
-  return float(torch.stack(losses).mean()) if losses else None
+  if not losses:
+    return None
+  losses = torch.stack(losses)
+  if mesh is not None:
+    mesh_lib.all_reduce_sum_(mesh, losses, mesh_lib.MODEL_AXIS)
+  return float(losses.mean())
+
+
+def train_mesh(use_mesh: bool, device, num_models: int = 0):
+  """The trainers' mesh: with ``use_mesh`` and a world of more than one,
+  ``make_mesh`` (``ensemble_mesh(num_models)`` for an ensemble) on
+  ``device``; else None, and the trainer runs its one-device code."""
+  if not use_mesh or mesh_lib.world_size() == 1:
+    return None
+  if num_models:
+    return mesh_lib.ensemble_mesh(num_models, device=device)
+  return mesh_lib.make_mesh(device=device)
+
+
+def rank_loggers(label: str, log_dir: str, tensorboard: bool = False):
+  """The terminal and JSONL loggers (and TensorBoard's) on the rank that
+  writes files, none on the others."""
+  if not mesh_lib.is_main():
+    return []
+  loggers = [TerminalLogger(label=label),
+             JSONLLogger(log_dir, "{}_train".format(label))]
+  if tensorboard:
+    from oatomobile_torch.utils.loggers import TensorBoardLogger  # pylint: disable=import-outside-toplevel
+    loggers.append(TensorBoardLogger(os.path.join(log_dir, "tb"),
+                                     label=label))
+  return loggers
 
 
 def best_val_from_logs(output_dir: str) -> float:
@@ -261,8 +296,12 @@ def train(
   """Runs training on ``device``; returns the final TrainState.
 
   Args:
-    use_mesh: no effect: one device (the mesh over several cards is not
-      ported yet).
+    use_mesh: with a world of more than one (torchrun, or a process group
+      the caller started), data-parallel over ``make_mesh()``: every rank
+      reads the same batches, takes its ``dp`` rows and averages the
+      gradients; the pack is not resident on the card then, and rank 0
+      alone writes logs, checkpoints and plots.  A world of one runs the
+      one-device code.
     resume: restore the latest full train state (model, optimiser, step,
       key) from output_dir/state: an exact resume.
     plot_every: if > 0, draw sampled plans over the BEV input of a fixed
@@ -272,17 +311,16 @@ def train(
       ``model-best``.
     device_data: keep the packed dataset resident on the device (under
       the size cap) and gather batches there.
-    device: ``"cuda"`` unless the caller asks for ``"cpu"``.
+    device: ``"cuda"`` unless the caller asks for ``"cpu"`` (under a
+      mesh, this rank's card).
   """
-  del use_mesh
   device = device_lib.resolve(device)
+  mesh = train_mesh(use_mesh, device)
+  if mesh is not None:
+    device = mesh.device
   os.makedirs(output_dir, exist_ok=True)
-  log_dir = os.path.join(output_dir, "logs")
-  loggers = [TerminalLogger(label="dim"), JSONLLogger(log_dir, "dim_train")]
-  if tensorboard:
-    from oatomobile_torch.utils.loggers import TensorBoardLogger  # pylint: disable=import-outside-toplevel
-    loggers.append(TensorBoardLogger(os.path.join(log_dir, "tb"),
-                                     label="dim"))
+  loggers = rank_loggers("dim", os.path.join(output_dir, "logs"),
+                         tensorboard)
 
   model = ImitativeModel(output_shape=(num_timesteps_to_keep, 2),
                          input_size=tuple(input_size),
@@ -293,10 +331,12 @@ def train(
                                rng_lib.fold_in(rng, 1))
   loss_fn = make_loss_fn(velocity_dropout)
   update = dp.make_update_fn(loss_fn,
-                             clip_norm=1.0 if clip_gradients else None)
+                             clip_norm=1.0 if clip_gradients else None,
+                             mesh=mesh)
 
   have_val = CARLADataset.is_packed(dataset_dir) and val_fraction > 0
-  resident, resident_n = _load_resident(dataset_dir, device_data, device)
+  resident, resident_n = _load_resident(dataset_dir,
+                                        device_data and mesh is None, device)
   epoch_loader, val_loader = make_loaders(
       dataset_dir, resident, resident_n, batch_size, seed, have_val,
       val_fraction, oversample_restarts)
@@ -309,6 +349,7 @@ def train(
     if latest is not None:
       state.load_state_dict(state_ckpt.load(latest))
       start_epoch = latest + 1
+  state = dp.replicate_state(mesh, state)
 
   checkpointer = Checkpointer(os.path.join(output_dir, "ckpts"))
   limit = nll_limit((num_timesteps_to_keep, 2))
@@ -326,19 +367,23 @@ def train(
         "sec": round(time.time() - t0, 2),
         "steps": state.step,
     }
-    val = val_mean(loss_fn, state.model, val_loader) if have_val else None
+    val = (val_mean(loss_fn, state.model, val_loader, mesh) if have_val
+           else None)
+    main = mesh_lib.is_main()
     if val is not None:
       record["val_loss"] = val
       if val < best_val:
         best_val = val
-        checkpointer.save_named("best", state.model.state_dict())
+        if main:
+          checkpointer.save_named("best", state.model.state_dict())
         record["val_best"] = True
     for logger in loggers:
       logger.write(record)
-    if (epoch + 1) % save_model_frequency == 0 or epoch == num_epochs - 1:
+    if main and ((epoch + 1) % save_model_frequency == 0 or
+                 epoch == num_epochs - 1):
       checkpointer.save(epoch, state.model.state_dict())
       state_ckpt.save(epoch, state.state_dict())
-    if plot_every and (epoch + 1) % plot_every == 0:
+    if main and plot_every and (epoch + 1) % plot_every == 0:
       if peek is None:
         peek = next(iter(CARLADataset.make_loader(
             dataset_dir, MODALITIES, batch_size=2, seed=seed)))

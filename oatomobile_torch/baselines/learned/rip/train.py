@@ -10,6 +10,12 @@ dropout keys, and the loss is the mean of the members' NLLs, as in the
 JAX trainer.  Checkpoints hold the stacked ``state_dict`` (every entry
 with a leading member axis); ``unstack_params`` takes member k's.
 
+With ``use_mesh`` and a world of more than one the trainer builds
+``ensemble_mesh(num_models)``: each ``mp`` rank trains its ``K / mp``
+members (``shard_ensemble``), each under its global member key, on its
+``dp`` rows of every batch; the members are gathered in member order
+(``gather_ensemble``) for every save and for the returned ensemble.
+
 Run:  python -m oatomobile_torch.baselines.learned.rip.train \\
           --dataset_dir ... --output_dir ... --num_models 4 [--cpu]
 """
@@ -26,12 +32,12 @@ from oatomobile_torch import device as device_lib
 from oatomobile_torch import rng as rng_lib
 from oatomobile_torch.baselines.learned.dim.train import (
     VELOCITY_DROPOUT, _load_resident, best_val_from_logs, make_context,
-    make_loaders, member_nll, run_epoch, val_mean)
+    make_loaders, member_nll, rank_loggers, run_epoch, train_mesh, val_mean)
 from oatomobile_torch.datasets.carla import CARLADataset
 from oatomobile_torch.models.dim import ImitativeModel
 from oatomobile_torch.parallel import dp
+from oatomobile_torch.parallel import mesh as mesh_lib
 from oatomobile_torch.utils.checkpoint import Checkpointer
-from oatomobile_torch.utils.loggers import JSONLLogger, TerminalLogger
 
 
 def stack_params(members: Sequence[nn.Module]) -> Dict[str, torch.Tensor]:
@@ -53,18 +59,26 @@ def load_stacked(members: Sequence[nn.Module],
 
 
 def make_loss_fn(num_models: int,
-                 velocity_dropout: float = VELOCITY_DROPOUT):
+                 velocity_dropout: float = VELOCITY_DROPOUT,
+                 first_member: int = 0):
   """``(members, batch, rng) -> loss``: the mean over the ``num_models``
-  members (an ``nn.ModuleList``) of each one's NLL under its own key."""
+  members of each one's NLL under its own key, ``split(rng,
+  num_models)[k]`` for member k.  ``members`` (an ``nn.ModuleList``) may
+  be a shard of the ensemble, members ``first_member`` on: the loss is
+  then their share of the mean (their NLLs' sum / ``num_models``)."""
 
   def loss_fn(members, batch, rng):
     sample, context = make_context(members[0], batch)
     y = sample["player_future"][..., :2]
     keys = rng_lib.split(rng.to(y.device), num_models)
-    return torch.stack([
-        member_nll(member, y, context, keys[k], velocity_dropout)
+    nll = torch.stack([
+        member_nll(member, y, context, keys[first_member + k],
+                   velocity_dropout)
         for k, member in enumerate(members)
-    ]).mean()
+    ])
+    if len(members) == num_models:
+      return nll.mean()
+    return nll.sum() / num_models
 
   return loss_fn
 
@@ -94,31 +108,34 @@ def train(
 
   ``grad_accum``: each optimiser step averages ``grad_accum`` micro-batches
   of ``batch_size / grad_accum`` samples (``optax.MultiSteps``), the batch
-  of ``batch_size`` at a fraction of the activation memory.  ``use_mesh``
-  has no effect: one device.  A run resumes from the newest periodic
-  checkpoint in ``output_dir`` (the optimiser restarts, the best val loss
-  is read back from the logs)."""
-  del use_mesh
+  of ``batch_size`` at a fraction of the activation memory.  ``use_mesh``:
+  the ensemble over ``mp`` and the batch over ``dp`` of
+  ``ensemble_mesh(num_models)`` with a world of more than one (module
+  docstring); rank 0 alone writes the logs and checkpoints.  A run resumes
+  from the newest periodic checkpoint in ``output_dir`` (the optimiser
+  restarts, the best val loss is read back from the logs); every rank
+  loads it, then keeps its members."""
   if grad_accum > 1 and batch_size % grad_accum:
     raise ValueError("batch_size {} is not a multiple of grad_accum "
                      "{}".format(batch_size, grad_accum))
   device = device_lib.resolve(device)
+  mesh = train_mesh(use_mesh, device, num_models)
+  if mesh is not None:
+    device = mesh.device
   os.makedirs(output_dir, exist_ok=True)
-  loggers = [TerminalLogger(label="rip"),
-             JSONLLogger(os.path.join(output_dir, "logs"), "rip_train")]
+  loggers = rank_loggers("rip", os.path.join(output_dir, "logs"))
 
-  members = nn.ModuleList([
+  ensemble = nn.ModuleList([
       ImitativeModel(output_shape=(num_timesteps_to_keep, 2),
                      generator=torch.Generator().manual_seed(seed + k),
                      device=device) for k in range(num_models)])
   micro_batch = batch_size // max(grad_accum, 1)
-  loss_fn = make_loss_fn(num_models, velocity_dropout)
-  update = dp.make_update_fn(loss_fn, grad_accum=grad_accum)
 
   checkpointer = Checkpointer(os.path.join(output_dir, "ckpts"),
                               prefix="ensemble")
   have_val = CARLADataset.is_packed(dataset_dir) and val_fraction > 0
-  resident, resident_n = _load_resident(dataset_dir, device_data, device)
+  resident, resident_n = _load_resident(dataset_dir,
+                                        device_data and mesh is None, device)
   epoch_loader, val_loader = make_loaders(
       dataset_dir, resident, resident_n, micro_batch, seed, have_val,
       val_fraction, oversample_restarts)
@@ -127,10 +144,27 @@ def train(
   start_epoch = 0
   last = checkpointer.latest_epoch()
   if last is not None:
-    load_stacked(members, checkpointer.load(last))
+    load_stacked(ensemble, checkpointer.load(last))
     start_epoch = last + 1
     best_val = best_val_from_logs(output_dir)
-    loggers[0].write({"resumed_from_epoch": last, "best_val": best_val})
+    for logger in loggers[:1]:
+      logger.write({"resumed_from_epoch": last, "best_val": best_val})
+
+  members, first = ensemble, 0
+  if mesh is not None:
+    per = num_models // mesh.shape[mesh_lib.MODEL_AXIS]
+    first = mesh.coordinate(mesh_lib.MODEL_AXIS) * per
+    members = ensemble[first:first + per]
+    load_stacked(members, mesh_lib.shard_ensemble(
+        mesh, stack_params(ensemble), num_models))
+
+  def stacked_ensemble():
+    """Every member's ``state_dict`` stacked in member order."""
+    return (stack_params(members) if mesh is None else
+            mesh_lib.gather_ensemble(mesh, stack_params(members)))
+
+  loss_fn = make_loss_fn(num_models, velocity_dropout, first)
+  update = dp.make_update_fn(loss_fn, grad_accum=grad_accum, mesh=mesh)
   state = dp.TrainState.create(members, dp.adam(members, learning_rate),
                                rng_lib.PRNGKey(seed + 999, device))
   for epoch in range(start_epoch, num_epochs):
@@ -139,21 +173,28 @@ def train(
                                  max_steps_per_epoch)
     record = {"epoch": epoch, "loss": mean_loss, "models": num_models,
               "sec": round(time.time() - t0, 2), "steps": state.step}
+    main = mesh_lib.is_main()
     if have_val:
-      val = val_mean(loss_fn, members, val_loader)
+      val = val_mean(loss_fn, members, val_loader, mesh)
       if val is not None:
         record["val_loss"] = val
         if val < best_val:
           best_val = val
-          checkpointer.save_named("best", stack_params(members))
+          stacked = stacked_ensemble()
+          if main:
+            checkpointer.save_named("best", stacked)
           record["val_best"] = True
     for logger in loggers:
       logger.write(record)
     if (epoch + 1) % save_model_frequency == 0 or epoch == num_epochs - 1:
-      checkpointer.save(epoch, stack_params(members))
+      stacked = stacked_ensemble()
+      if main:
+        checkpointer.save(epoch, stacked)
   for logger in loggers:
     logger.close()
-  return members
+  if mesh is not None:
+    load_stacked(ensemble, stacked_ensemble())
+  return ensemble
 
 
 def main() -> None:

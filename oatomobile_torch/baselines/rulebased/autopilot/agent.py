@@ -5,7 +5,9 @@ The decision logic is the port's batched expert (``sim/autopilot.py``);
 this class is the host-side ``Agent`` adapter for single-scene gym loops:
 it reads the simulator's scene (a batch of one on the simulator's
 device), runs one policy evaluation and writes the updated PID/RNG state
-back, so the controller's integrals stay continuous across steps.
+back, so the controller's integrals stay continuous across steps.  The
+evaluation is the simulator's captured step of this agent
+(``CUDASimulator.captured_step``), as the JAX agent jits its policy.
 """
 
 import numpy as np
@@ -13,6 +15,7 @@ import torch
 
 import oatomobile_torch
 from oatomobile_torch.sim.autopilot import autopilot_policy
+from oatomobile_torch.sim.types import copy_state_
 from oatomobile_torch.simulators.cuda.simulator import CARLAAction
 
 
@@ -42,11 +45,16 @@ class AutopilotAgent(oatomobile_torch.Agent):
         proximity_vehicle_threshold=f32(proximity_vehicle_threshold),
         proximity_tlight_threshold=f32(proximity_tlight_threshold))
 
+  def _policy(self, state):
+    """The action [1, 3]; the PID, patience and key written back."""
+    action, new_state = autopilot_policy(self._params, state,
+                                         noise=self._noise)
+    copy_state_(state, new_state)
+    return action
+
   def act(self, observation: oatomobile_torch.Observations,
           *args, **kwargs) -> oatomobile_torch.Action:
     del observation  # The expert reads privileged simulator state.
-    action, self._sim.state = autopilot_policy(self._params, self._sim.state,
-                                               noise=self._noise)
-    a = action[0].cpu().numpy()
+    a = self._sim.captured_step(self, self._policy)[0].cpu().numpy()
     return CARLAAction(throttle=float(a[0]), steer=float(a[1]),
                        brake=float(a[2]))

@@ -1,4 +1,5 @@
-"""The batched environment: B scenes stepped together on one device.
+"""The batched environment: B scenes stepped together, on one device or
+over a mesh of ranks.
 
 Port of the JAX package's ``envs/batched.py``.  Where the JAX class
 ``vmap``s a one-scene step, ``lax.scan``s it over time and places the
@@ -6,6 +7,14 @@ batch on a device mesh, this class steps a ``[B, ...]`` scene batch on one
 ``device``.  Done scenes are reset on the device from their initial
 state, with a fresh key folded from the live one (unless
 ``auto_reset=False``, as the collection pipeline asks).
+
+With a ``mesh`` (``parallel.mesh``) every rank builds the whole batch from
+the seed and keeps its ``dp`` rows, so scene i is the same scene on
+whichever rank it lives; each rank steps (and captures) its ``B / n``
+scenes with no collective, since scenes are independent, and the values
+the JAX class returns as global arrays (``state``, the observations and
+done flags of ``reset`` and ``step``, ``rollout``'s returns) are gathered
+once a call, the same global value on every rank.
 
 The JAX package jits its step and its rollout's scan with the state
 donated.  Here one step (policy -> world step -> done -> stats -> sensors
@@ -23,6 +32,7 @@ from oatomobile_torch import device as device_lib
 from oatomobile_torch import graphs
 from oatomobile_torch import rng as rng_lib
 from oatomobile_torch.maps import load_town
+from oatomobile_torch.parallel import mesh as mesh_lib
 from oatomobile_torch.sensors import synth
 from oatomobile_torch.sim import (autopilot_policy, init_scene_batch,
                                   make_params, world_step)
@@ -40,7 +50,7 @@ def _autopilot(params, state):
 
 
 class BatchedEnv:
-  """B-way vectorised driving environment on one device."""
+  """B-way vectorised driving environment on one device or a mesh."""
 
   def __init__(
       self,
@@ -61,8 +71,10 @@ class BatchedEnv:
     """Args:
       route_pool: unused, kept for the JAX package's signature (the
         batched route planner makes per-scene routes).
-      mesh: must be None: placing the scenes over several cards is not
-        ported yet.
+      mesh: a ``parallel.mesh.Mesh``: this rank steps its ``dp`` rows of
+        the batch on the mesh's device (``device`` is not read), and the
+        returns are global (module docstring).  ``batch_size`` must
+        divide over ``dp``.
       auto_reset: reset done scenes from their initial state after each
         step; ``False`` leaves them where they ended (collection cuts its
         windows before the first collision).
@@ -70,11 +82,9 @@ class BatchedEnv:
         ``"cpu"``.  Raises when it names CUDA and no card is present.
     """
     del route_pool
-    if mesh is not None:
-      raise NotImplementedError(
-          "BatchedEnv(mesh=...): scenes over a device mesh are not ported "
-          "to oatomobile_torch yet (one device only)")
-    self._device = device_lib.resolve(device)
+    self._mesh = mesh
+    self._device = (mesh.device if mesh is not None else
+                    device_lib.resolve(device))
     self._town = load_town(town)
     self._params = make_params(self._town, fps=fps, device=self._device)
     self._batch_size = int(batch_size)
@@ -91,14 +101,18 @@ class BatchedEnv:
         seed=seed,
         device=self._device,
     )
+    if mesh is not None:
+      self._initial = clone_state(mesh_lib.shard_batch(mesh, self._initial))
+    # This rank's scenes (all of them without a mesh).
+    self._local_batch = self._initial.batch_size
     # The static buffers every step reads and writes in place: the live
     # state (a copy, so that auto-reset always finds the pristine initial
     # state), the rollout stats and step()'s actions.
     self._state = clone_state(self._initial)
-    self._stats = {k: torch.zeros(self._batch_size, dtype=dtype,
+    self._stats = {k: torch.zeros(self._local_batch, dtype=dtype,
                                   device=self._device)
                    for k, dtype in STAT_DTYPES.items()}
-    self._actions = torch.zeros((self._batch_size, 3), dtype=torch.float32,
+    self._actions = torch.zeros((self._local_batch, 3), dtype=torch.float32,
                                 device=self._device)
     self._pool = graphs.new_pool(self._device)
     self._step_fn = None
@@ -122,9 +136,21 @@ class BatchedEnv:
     return self._params
 
   @property
+  def mesh(self):
+    return self._mesh
+
+  @property
   def state(self) -> SceneState:
-    """A copy of the live state (the next step overwrites the live one)."""
-    return clone_state(self._state)
+    """A copy of the live state (the next step overwrites the live one);
+    the whole batch on every rank under a mesh."""
+    return self._global(clone_state(self._state))
+
+  def _global(self, tree, dim: int = 0):
+    """``tree`` of this rank's scenes as the whole batch's (along
+    ``dim``)."""
+    if self._mesh is None:
+      return tree
+    return mesh_lib.gather_batch(self._mesh, tree, dim)
 
   # -- core semantics -------------------------------------------------------
 
@@ -161,7 +187,7 @@ class BatchedEnv:
     the live state's buffers.  Returns the collected observations (after
     ``collect_transform``), an empty dict when nothing is collected."""
     params, state, stats, B = (self._params, self._state, self._stats,
-                               self._batch_size)
+                               self._local_batch)
 
     def step():
       actions, live = policy(params, state)
@@ -197,17 +223,24 @@ class BatchedEnv:
 
   def reset(self) -> Dict[str, torch.Tensor]:
     copy_state_(self._state, self._initial)
-    return synth.synthesize(self._params, self.state, self._sensors)
+    return self._global(synth.synthesize(self._params,
+                                         clone_state(self._state),
+                                         self._sensors))
 
   def step(self, actions) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-    """Steps all scenes; returns (obs dict of [B, ...], done [B])."""
-    self._actions.copy_(torch.as_tensor(actions, dtype=torch.float32,
-                                        device=self._device))
+    """Steps all scenes with ``actions`` [B, 3] (the whole batch's, under
+    a mesh too); returns (obs dict of [B, ...], done [B])."""
+    actions = torch.as_tensor(actions, dtype=torch.float32,
+                              device=self._device)
+    if self._mesh is not None:
+      actions = mesh_lib.shard_batch(self._mesh, actions)
+    self._actions.copy_(actions)
     if self._step_fn is None:
       self._step_fn = graphs.CapturedStep(self._fused_step, self._device,
                                           pool=self._pool)
     obs, done = self._step_fn()
-    return {k: v.clone() for k, v in obs.items()}, done.clone()
+    return self._global(({k: v.clone() for k, v in obs.items()},
+                         done.clone()))
 
   def rollout(
       self,
@@ -240,7 +273,9 @@ class BatchedEnv:
 
     Returns:
       (final_state, collected dict (or () when nothing is collected),
-       episode_stats dict of [B] tensors), each the caller's own copy.
+       episode_stats dict of [B] tensors), each the caller's own copy and
+      the whole batch's on every rank under a mesh (gathered once, after
+      the last step).
     """
     collect, compute = tuple(collect), tuple(compute)
     key = (collect, compute, None if policy is None else id(policy),
@@ -262,8 +297,8 @@ class BatchedEnv:
                               device=v.device) for k, v in obs.items()}
       for k, v in obs.items():
         out[k][t].copy_(v)
-    stats = {k: v.clone() for k, v in self._stats.items()}
-    return self.state, (out if collect else ()), stats
+    stats = self._global({k: v.clone() for k, v in self._stats.items()})
+    return self.state, (self._global(out, 1) if collect else ()), stats
 
   def _rollout_eager(
       self,
@@ -277,7 +312,7 @@ class BatchedEnv:
     and writes no buffer until it ends: the yardstick that tests and
     ``chip_smoke.py`` hold the captured step against."""
     policy = policy or _autopilot
-    B, dev = self._batch_size, self._device
+    B, dev = self._local_batch, self._device
     stats = {k: torch.zeros(B, dtype=dtype, device=dev)
              for k, dtype in STAT_DTYPES.items()}
     collected = {key: [] for key in collect}
@@ -303,4 +338,5 @@ class BatchedEnv:
     copy_state_(self._state, state)
     out = ({key: torch.stack(values) for key, values in collected.items()}
            if collect else ())
-    return state, out, stats
+    return (self._global(state), self._global(out, 1) if collect else (),
+            self._global(stats))

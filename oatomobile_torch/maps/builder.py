@@ -752,6 +752,12 @@ def grid_spec(xs: Sequence[float], ys: Sequence[float],
   return NetworkSpec(nodes=nodes, edges=edges)
 
 
+def build_grid_town(name: str, xs: Sequence[float],
+                    ys: Sequence[float]) -> TownMap:
+  """Builds a TownMap for a rectangular grid of two-lane streets."""
+  return build_town(name, grid_spec(xs, ys))
+
+
 # ---------------------------------------------------------------------------
 # Spawn pinning
 # ---------------------------------------------------------------------------

@@ -14,6 +14,7 @@ flax's GroupNorm takes the variance as E[x^2] - E[x]^2 (clipped at 0);
 rounding (the tests state the tolerance).
 """
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -98,35 +99,44 @@ class InvertedResidual(nn.Module):
     return x + h if self._use_residual else h
 
 
+def channels_of(ch: int, width_mult: float = 1.0) -> int:
+  """MobileNetV2's channel rounding: ``ch`` scaled by ``width_mult`` and
+  snapped to a multiple of 8, at least 8."""
+  return max(8, int(ch * width_mult + 4) // 8 * 8)
+
+
 class MobileNetV2(nn.Module):
   """MobileNetV2 feature extractor and classification head.
 
   Input: NCHW float images with ``in_channels`` channels (the BEV LIDAR
-  has 2).  Output: ``[B, num_classes]``.
+  has 2).  Output: ``[B, num_classes]``.  ``width_mult`` scales every
+  channel count ``ch`` to ``max(8, int(ch * width_mult + 4) // 8 * 8)``
+  (``channels``), as the JAX module does.
   """
 
   def __init__(self,
                in_channels: int = 2,
                num_classes: int = 128,
                *,
+               width_mult: float = 1.0,
                generator: Optional[torch.Generator] = None,
                device="cuda") -> None:
     super().__init__()
     device = device_lib.resolve(device)
-    # Width 1: every channel count is already a multiple of 8.
-    self.stem = _SameConv(in_channels, 32, 3, stride=2)
-    self.stem_norm = _norm(32)
-    channels, block = 32, 0
+    c = functools.partial(channels_of, width_mult=width_mult)
+    self.stem = _SameConv(in_channels, c(32), 3, stride=2)
+    self.stem_norm = _norm(c(32))
+    channels, block = c(32), 0
     for t, ch, n, s in _INVERTED_RESIDUAL_SETTINGS:
       for i in range(n):
         self.add_module("block_{}".format(block), InvertedResidual(
-            channels, ch, stride=s if i == 0 else 1, expand_ratio=t))
-        channels = ch
+            channels, c(ch), stride=s if i == 0 else 1, expand_ratio=t))
+        channels = c(ch)
         block += 1
     self._num_blocks = block
-    self.head_conv = _SameConv(channels, 1280, 1)
-    self.head_norm = _norm(1280)
-    self.classifier = nn.Linear(1280, num_classes, device="meta")
+    self.head_conv = _SameConv(channels, c(1280), 1)
+    self.head_norm = _norm(c(1280))
+    self.classifier = nn.Linear(c(1280), num_classes, device="meta")
     initializers.materialize(self, generator, device)
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:

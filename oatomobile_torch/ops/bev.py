@@ -10,13 +10,17 @@ What lives here:
   - the constants and static images (pixel centres, ground ring, expected
     obstacle hits);
   - nearest-k selection of wall / road rects and actor boxes;
-  - ``splat_lidar``: the dense half-plane splat, the plain version the
-    tests hold against the JAX package;
+  - ``splat_lidar``: the splat by the JAX package's three methods: the
+    dense half-plane test, the interval test (``rect_column_intervals``)
+    and the row-block-culled interval test; the tests hold each against
+    the JAX method of the same name;
   - ``gather_inputs``: the per-scene kernel inputs (hero pose, selected
     rects and boxes) for the CUDA splat in ``ops/bev_cuda.py``.
 
-The interval and blocked splat methods of the JAX package are not ported
-yet.
+The port's default method is ``"dense"``, where the JAX package's is
+``"interval"``: the card's kernel mirrors the dense test bit for bit, and
+the sensor goes through the kernel on a card.  The methods differ only at
+pixels within float rounding of a rect edge.
 """
 
 import functools
@@ -229,6 +233,127 @@ def rects_occupancy(grid_world: torch.Tensor, rects: torch.Tensor,
   return torch.any(inside, dim=-1)
 
 
+def rect_column_intervals(rects: torch.Tensor, origin_xy: torch.Tensor,
+                          cos_y: torch.Tensor, sin_y: torch.Tensor,
+                          inflate: float = 0.0):
+  """Per-(BEV row, rect) column intervals covering each oriented rect: the
+  interval form of ``rects_occupancy``.  Along one BEV row both |u| <= hx
+  and |v| <= hy are linear in the column offset, so their conjunction is
+  one column interval.
+
+  Args: rects [B, R, 6] world-frame rects; origin_xy [B, 2] the hero;
+  cos_y, sin_y [B] of its yaw.  Returns (mid, half) [B, H, R], the
+  intervals' centres and half-widths in column-offset units; an empty
+  interval has half < 0 (a rect with negative half-extents is empty).
+  """
+  ci = pixel_centers(rects.device)                # [H]
+  cr, sr = rects[..., 4], rects[..., 5]           # [B, R]
+  dx = origin_xy[:, 0, None] - rects[..., 0]
+  dy = origin_xy[:, 1, None] - rects[..., 1]
+  a = cr * dx + sr * dy                  # u of the hero origin
+  b = -sr * dx + cr * dy                 # v of the hero origin
+  cos_y, sin_y = cos_y[:, None], sin_y[:, None]
+  au = cr * cos_y + sr * sin_y           # row direction . u-axis
+  bu = -cr * sin_y + sr * cos_y          # column direction . u-axis
+  av = -sr * cos_y + cr * sin_y
+  bv = sr * sin_y + cr * cos_y
+  hx = rects[..., 2] + inflate
+  hy = rects[..., 3] + inflate
+  big = 1e9
+
+  def axis_interval(base, slope, h):
+    """Column interval where |base + cj * slope| <= h."""
+    degenerate = (slope.abs() < 1e-6)[:, None, :]
+    safe = torch.where(degenerate, 1.0, slope[:, None, :])
+    h = h[:, None, :]
+    l1 = (-h - base) / safe
+    l2 = (h - base) / safe
+    lo = torch.minimum(l1, l2)
+    hi = torch.maximum(l1, l2)
+    inside = base.abs() <= h
+    lo = torch.where(degenerate, torch.where(inside, -big, big), lo)
+    hi = torch.where(degenerate, torch.where(inside, big, -big), hi)
+    # h < 0 marks masked-out rects: force them empty.
+    empty = h < 0.0
+    return torch.where(empty, big, lo), torch.where(empty, -big, hi)
+
+  base_u = a[:, None, :] + ci[None, :, None] * au[:, None, :]
+  base_v = b[:, None, :] + ci[None, :, None] * av[:, None, :]
+  lo_u, hi_u = axis_interval(base_u, bu, hx)
+  lo_v, hi_v = axis_interval(base_v, bv, hy)
+  lo = torch.maximum(lo_u, lo_v)
+  hi = torch.minimum(hi_u, hi_v)
+  return 0.5 * (lo + hi), 0.5 * (hi - lo)
+
+
+def intervals_occupancy(mid: torch.Tensor, half: torch.Tensor) -> torch.Tensor:
+  """[B, H, W] bool from per-(row, rect) column intervals [B, H, R]."""
+  cj = pixel_centers(mid.device)
+  inside = ((cj[None, None, :, None] - mid[:, :, None, :]).abs() <=
+            half[:, :, None, :])
+  return torch.any(inside, dim=-1)
+
+
+# Row-block culling (``intervals_occupancy_blocked``): rows per block and
+# the per-block rect budget (the JAX package's, sized by measurement over
+# dense-traffic rollouts: 10-row blocks peak at 11 nonempty rects).
+BLOCK_ROWS = 10
+BLOCK_BUDGET = 14
+
+
+def intervals_occupancy_blocked(mid: torch.Tensor, half: torch.Tensor,
+                                block_rows: int = BLOCK_ROWS,
+                                budget: int = BLOCK_BUDGET) -> torch.Tensor:
+  """Row-block-culled ``intervals_occupancy``: the rows split into blocks
+  of ``block_rows``, and each block tests only the ``budget`` rects with
+  the widest interval anywhere in it (ties to the lower index, as
+  ``lax.top_k``).  Exact whenever no block has more than ``budget`` rects
+  with a nonempty interval; beyond that, the narrowest drop first."""
+  B, H, R = mid.shape
+  budget = min(budget, R)
+  nb = H // block_rows
+  if nb * block_rows != H:
+    raise ValueError("{} rows do not split into blocks of {}".format(
+        H, block_rows))
+  mid_b = mid.reshape(B, nb, block_rows, R)
+  half_b = half.reshape(B, nb, block_rows, R)
+  score = half_b.amax(dim=2)                               # [B, nb, R]
+  idx = torch.sort(score, dim=-1, descending=True,
+                   stable=True).indices[..., :budget]      # [B, nb, k]
+  idx = idx[:, :, None, :].expand(B, nb, block_rows, budget)
+  sel_mid = torch.gather(mid_b, 3, idx)                    # [B, nb, rows, k]
+  sel_half = torch.gather(half_b, 3, idx)
+  cj = pixel_centers(mid.device)
+  inside = ((cj - sel_mid[..., None]).abs() <=
+            sel_half[..., None])                           # [.., k, W]
+  return torch.any(inside, dim=-2).reshape(B, H, -1)
+
+
+def rects_occupancy_interval(rects: torch.Tensor, origin_xy: torch.Tensor,
+                             hero_yaw: torch.Tensor,
+                             inflate: float = 0.0) -> torch.Tensor:
+  """The interval form of ``rects_occupancy``: [B, H, W] bool of the
+  world-frame rects [B, R, 6] on the hero-frame grid of ``origin_xy``
+  [B, 2] and ``hero_yaw`` [B]."""
+  mid, half = rect_column_intervals(rects, origin_xy, torch.cos(hero_yaw),
+                                    torch.sin(hero_yaw), inflate)
+  return intervals_occupancy(mid, half)
+
+
+def _box_intervals(local_centers_uv, yaw_rel, half_lw, alive):
+  """Column intervals [B, H, K] of hero-frame boxes (origin 0, identity
+  hero axes); dead boxes are empty."""
+  B = yaw_rel.shape[0]
+  device = yaw_rel.device
+  half_lw = torch.where(alive[..., None], half_lw, -1.0)
+  rects = torch.cat([local_centers_uv, half_lw,
+                     torch.cos(yaw_rel)[..., None],
+                     torch.sin(yaw_rel)[..., None]], dim=-1)
+  return rect_column_intervals(rects, torch.zeros((B, 2), device=device),
+                               torch.ones(B, device=device),
+                               torch.zeros(B, device=device))
+
+
 def _hero_frame(rel: torch.Tensor, cos_y: torch.Tensor,
                 sin_y: torch.Tensor) -> torch.Tensor:
   u = cos_y[:, None] * rel[..., 0] + sin_y[:, None] * rel[..., 1]
@@ -238,17 +363,29 @@ def _hero_frame(rel: torch.Tensor, cos_y: torch.Tensor,
 
 def splat_lidar(params, state, *,
                 max_vehicles: int = MAX_BEV_VEHICLES,
-                max_pedestrians: int = MAX_BEV_PEDESTRIANS) -> torch.Tensor:
-  """[B, 200, 200, 2] BEV LIDAR histogram by the dense half-plane test
-  (the JAX package's ``splat_lidar(method="dense")``).
+                max_pedestrians: int = MAX_BEV_PEDESTRIANS,
+                method: str = "dense") -> torch.Tensor:
+  """[B, 200, 200, 2] BEV LIDAR histogram (the JAX package's
+  ``splat_lidar`` over a scene batch).
 
   Axis 1 runs along the car's forward axis, axis 2 lateral; channel 0 =
-  below (ground), channel 1 = above (obstacles); values in [0, 1].  The
-  plain version the tests use; on a card the sensor goes through the
-  kernel of ``ops/bev_cuda.py``."""
+  below (ground), channel 1 = above (obstacles); values in [0, 1].
+
+  ``method``: ``"dense"`` (the default here: the half-plane test that the
+  card's kernel of ``ops/bev_cuda.py`` mirrors bit for bit, and the plain
+  version the sensor's kernel is held against), ``"interval"`` (the JAX
+  package's default: ``rect_column_intervals``) or ``"blocked"`` (the
+  interval test with row-block culling of the merged wall, vehicle and
+  pedestrian set, ``intervals_occupancy_blocked``).  They agree but at
+  pixels within float rounding of a rect edge, and ``"blocked"`` needs
+  the per-block budget to cover the scene."""
+  if method not in ("dense", "interval", "blocked"):
+    raise ValueError("unknown splat method {!r}".format(method))
   hero_xy, hero_yaw = state.hero_xy, state.hero_yaw
   device = hero_xy.device
-  grid_world = _hero_frame_grid(hero_xy, hero_yaw)
+  interval = method != "dense"
+  if not interval:
+    grid_world = _hero_frame_grid(hero_xy, hero_yaw)
 
   # Building walls: the only static surfaces a LIDAR returns from.
   wall_sel = nearest_rects(params.map["wall_rects"], hero_xy,
@@ -258,8 +395,15 @@ def splat_lidar(params, state, *,
   road_sel = nearest_rects(params.map["road_rects"], hero_xy,
                            min(MAX_BEV_ROADS, params.road_budget))
   cos_y, sin_y = torch.cos(hero_yaw), torch.sin(hero_yaw)
-  occupied = rects_occupancy(grid_world, wall_sel)
-  open_ground = rects_occupancy(grid_world, road_sel, inflate=SIDEWALK)
+  if interval:
+    # Walls, vehicles and pedestrians add their column intervals to one
+    # merged [B, H, R] set, so that "blocked" culls across them at once.
+    ivals = [rect_column_intervals(wall_sel, hero_xy, cos_y, sin_y)]
+    open_ground = rects_occupancy_interval(road_sel, hero_xy, hero_yaw,
+                                           inflate=SIDEWALK)
+  else:
+    occupied = rects_occupancy(grid_world, wall_sel)
+    open_ground = rects_occupancy(grid_world, road_sel, inflate=SIDEWALK)
 
   # Vehicle boxes (nearest MAX_BEV_VEHICLES only).
   if state.num_npcs > 0:
@@ -274,16 +418,28 @@ def splat_lidar(params, state, *,
     ], dim=-1)
     in_range = norm(rel_sel) < (METERS_MAX * 1.5)
     alive = take(state.npc_alive, sel) & in_range
-    occupied = occupied | _boxes_occupancy(centers, yaw_rel, half, alive)
+    if interval:
+      ivals.append(_box_intervals(centers, yaw_rel, half, alive))
+    else:
+      occupied = occupied | _boxes_occupancy(centers, yaw_rel, half, alive)
 
   if state.num_pedestrians > 0:
     rel = state.ped_xy - hero_xy[:, None, :]
     sel = _nearest_k(rel, state.ped_alive, max_pedestrians)
     centers = _hero_frame(take(rel, sel), cos_y, sin_y)
     half = torch.full(sel.shape + (2,), 0.35, device=device)
-    occupied = occupied | _boxes_occupancy(
-        centers, torch.zeros(sel.shape, device=device), half,
-        take(state.ped_alive, sel))
+    args = (centers, torch.zeros(sel.shape, device=device), half,
+            take(state.ped_alive, sel))
+    if interval:
+      ivals.append(_box_intervals(*args))
+    else:
+      occupied = occupied | _boxes_occupancy(*args)
+
+  if interval:
+    mid = torch.cat([m for m, _ in ivals], dim=-1)
+    half = torch.cat([h for _, h in ivals], dim=-1)
+    occupied = (intervals_occupancy_blocked(mid, half)
+                if method == "blocked" else intervals_occupancy(mid, half))
 
   # Range-dependent expected hit counts.
   c = pixel_centers(device)

@@ -1,10 +1,11 @@
 """Coordinate transforms between world and ego (local) frames: the port of
 the JAX package's ``ops/transforms.py``.
 
-``world2local``, ``local2world`` and ``rot2mat`` take numpy arrays or torch
-tensors: given a tensor they compute in torch on its device (the
-counterpart of the JAX functions with ``xp=jnp``), otherwise in numpy (with
-``xp=np``).  ``np_world2local`` and ``np_local2world`` are the host-side
+``world2local``, ``local2world``, ``rot2mat``, the planar
+``world2local_2d`` / ``local2world_2d`` and ``yaw_to_forward`` take numpy
+arrays or torch tensors: given a tensor they compute in torch on its
+device (the counterpart of the JAX functions with ``xp=jnp``), otherwise
+in numpy (with ``xp=np``).  ``np_world2local`` and ``np_local2world`` are the host-side
 float64 twins.
 
 Rotations are CARLA ``(pitch, yaw, roll)`` triplets in *degrees*;
@@ -93,6 +94,37 @@ def local2world(*, current_location, current_rotation, local_locations):
         current_location
   out = _einsum("...ij,...nj->...ni", Rt, local_locations)
   return out + current_location[..., None, :]
+
+
+def yaw_to_forward(yaw_deg):
+  """Unit forward vector ``[..., 3]`` of a (pitch 0) yaw in degrees, CARLA
+  convention: ``get_forward_vector() == (cos(yaw), sin(yaw), 0)``."""
+  xp = torch if _is_torch(yaw_deg) else np
+  yaw = xp.deg2rad(yaw_deg if _is_torch(yaw_deg) else np.asarray(yaw_deg))
+  return _stack([xp.cos(yaw), xp.sin(yaw), xp.zeros_like(yaw)], -1)
+
+
+def world2local_2d(*, current_xy, current_yaw_rad, world_xy):
+  """Planar world -> ego frame (a yaw-only rotation): ``world_xy``
+  ``[..., N, 2]`` in the frame of ``current_xy`` ``[..., 2]`` and
+  ``current_yaw_rad`` ``[...]``; x forward, y right."""
+  xp = torch if _is_torch(current_xy, current_yaw_rad, world_xy) else np
+  c = xp.cos(current_yaw_rad)
+  s = xp.sin(current_yaw_rad)
+  delta = world_xy - current_xy[..., None, :]
+  x = c[..., None] * delta[..., 0] + s[..., None] * delta[..., 1]
+  y = -s[..., None] * delta[..., 0] + c[..., None] * delta[..., 1]
+  return _stack([x, y], -1)
+
+
+def local2world_2d(*, current_xy, current_yaw_rad, local_xy):
+  """Inverse of :func:`world2local_2d`."""
+  xp = torch if _is_torch(current_xy, current_yaw_rad, local_xy) else np
+  c = xp.cos(current_yaw_rad)
+  s = xp.sin(current_yaw_rad)
+  x = c[..., None] * local_xy[..., 0] - s[..., None] * local_xy[..., 1]
+  y = s[..., None] * local_xy[..., 0] + c[..., None] * local_xy[..., 1]
+  return _stack([x, y], -1) + current_xy[..., None, :]
 
 
 def np_world2local(*, current_location, current_rotation, world_locations):

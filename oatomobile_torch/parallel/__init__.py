@@ -1,6 +1,6 @@
-"""Training on one device (``dp``); the device mesh and the layouts over
-several cards are not ported yet."""
+"""Parallelism: the device mesh over ``torch.distributed`` and the
+data-parallel training update."""
 
-from oatomobile_torch.parallel import dp
+from oatomobile_torch.parallel import dp, mesh
 
-__all__ = ["dp"]
+__all__ = ["dp", "mesh"]

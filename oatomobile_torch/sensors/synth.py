@@ -51,6 +51,11 @@ def _with_zero(xy: torch.Tensor) -> torch.Tensor:
   return torch.cat([xy, torch.zeros_like(xy[..., :1])], dim=-1)
 
 
+def hero_yaw_deg(state: SceneState) -> torch.Tensor:
+  """[B] the hero's yaw in degrees."""
+  return torch.rad2deg(state.hero_yaw)
+
+
 def location(state: SceneState) -> torch.Tensor:
   """[B, 3] world location (z = 0 plane)."""
   return _with_zero(state.hero_xy)

@@ -107,6 +107,15 @@ class PIDState(_TensorDataclass):
   prev_error: torch.Tensor  # [B] f32
 
   @classmethod
+  def zero(cls, device="cpu") -> "PIDState":
+    """One controller's zero state, unbatched: ``err_buf`` [PID_WINDOW]
+    and a scalar ``prev_error`` (the JAX ``PIDState.zero``)."""
+    return cls(err_buf=torch.zeros((PID_WINDOW,), dtype=torch.float32,
+                                   device=device),
+               prev_error=torch.zeros((), dtype=torch.float32,
+                                      device=device))
+
+  @classmethod
   def zero_batch(cls, batch_size: int, device) -> "PIDState":
     return cls(
         err_buf=torch.zeros((batch_size, PID_WINDOW), dtype=torch.float32,

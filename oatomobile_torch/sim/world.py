@@ -368,6 +368,20 @@ def init_scene_batch(
   return _state_from_host(arrays, keys, B, device)
 
 
+def stack_scenes(scenes) -> SceneState:
+  """One state of the scene batches ``scenes`` (each a ``SceneState`` of
+  one or more scenes, as ``init_scene`` gives), concatenated along the
+  leading scene axis: the JAX ``stack_scenes`` of per-scene states."""
+  return map_state(lambda *xs: torch.cat(xs, dim=0), *scenes)
+
+
+def batched_world_step(params: WorldParams, states: SceneState,
+                       actions: torch.Tensor) -> SceneState:
+  """``world_step`` of a scene batch (the JAX function ``vmap``s the
+  one-scene step; the port's step is batched already)."""
+  return world_step(params, states, actions)
+
+
 def rollout(params: WorldParams, state: SceneState,
             actions: torch.Tensor) -> Tuple[SceneState, SceneState]:
   """The step over time: a Python loop in place of ``lax.scan``.

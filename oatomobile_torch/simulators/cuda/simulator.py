@@ -10,6 +10,14 @@ values are then copied to the host with the batch axis dropped.  With
 ``"lidar"`` among the sensors (the default) each ``reset`` and each
 ``step`` launches the BEV splat kernel once on a card.
 
+The JAX simulator jits its fused step with the state donated and scans
+its warm-up.  Here the scene lives in static buffers from the first
+``reset`` on (``reset`` copies each new scene into them), and the step and
+the warm-up step run through ``graphs.CapturedStep``: on a card each is
+captured into a CUDA graph and replayed (the warm-up ``warmup_steps``
+times), on the CPU each runs eagerly.  The step reads the action from a
+static ``[1, 3]`` buffer.
+
 The sensor zoo of the reference maps to lightweight host-side ``Sensor``
 shells that hold the materialised observation values.
 """
@@ -21,12 +29,14 @@ import numpy as np
 import torch
 
 from oatomobile_torch import device as device_lib
+from oatomobile_torch import graphs
 from oatomobile_torch.core.registry import registry
 from oatomobile_torch.core.simulator import (Observations, Sensor, SensorSuite,
                                              Simulator)
 from oatomobile_torch.maps import load_town
 from oatomobile_torch.sensors import synth
 from oatomobile_torch.sim import init_scene, make_params, world_step
+from oatomobile_torch.sim.types import clone_state, copy_state_
 from oatomobile_torch.simulators.cuda import defaults
 from oatomobile_torch.utils import spaces
 
@@ -330,7 +340,18 @@ class CUDASimulator(Simulator):
         device_keys.append(name)
     self._sensor_suite = SensorSuite(sensor_classes)
     self._device_keys = tuple(sorted(device_keys))
+    # The static buffers of the captured steps, made at the first reset:
+    # the scene, the step's action and the warm-up's zero action.
     self._state = None
+    self._action = torch.zeros((1, 3), dtype=torch.float32,
+                               device=self._device)
+    self._zero = torch.zeros((1, 3), dtype=torch.float32,
+                             device=self._device)
+    self._pool = graphs.new_pool(self._device)
+    self._step_fn = None
+    self._warmup_fn = None
+    # id(owner) -> (owner, its step): ``captured_step``'s steps.
+    self._owned_steps = {}
     self._last_action = None
 
   # -- Simulator interface -------------------------------------------------
@@ -353,14 +374,15 @@ class CUDASimulator(Simulator):
 
   @property
   def state(self):
-    """The scene as a ``SceneState`` batch of one on ``device``."""
-    return self._state
+    """A copy of the scene as a ``SceneState`` batch of one on
+    ``device`` (the next step overwrites the live one)."""
+    return None if self._state is None else clone_state(self._state)
 
   @state.setter
   def state(self, value) -> None:
     """Agents that own controller state inside the scene (the autopilot's
-    PIDs and key) write it back here."""
-    self._state = value
+    PIDs and key) write it back here: copied into the live buffers."""
+    copy_state_(self._state, value)
 
   @property
   def destination(self):
@@ -391,9 +413,42 @@ class CUDASimulator(Simulator):
   def seed(self, seed: int) -> None:
     self._seed = int(seed)
 
+  def captured_step(self, owner, fn):
+    """Runs ``fn(state)`` on the scene's live buffers as ``owner``'s
+    captured step (built at its first call, in the simulator's graph
+    pool) and returns what it returns: the graph's own tensors on a card
+    (copy what you keep).  For an agent that reads the scene and writes
+    its controller state back every step, as the JAX agents jit their
+    policies; ``fn`` writes what it changes into ``state`` in place
+    (``sim.types.copy_state_``).  Call it after ``reset``."""
+    entry = self._owned_steps.get(id(owner))
+    if entry is None:
+      state = self._state
+      entry = (owner, graphs.CapturedStep(lambda: fn(state), self._device,
+                                          pool=self._pool))
+      self._owned_steps[id(owner)] = entry
+    return entry[1]()
+
+  def _compile(self) -> None:
+    """The captured step and warm-up step over the static buffers."""
+    params, state, keys = self._params, self._state, self._device_keys
+
+    def fused():
+      new_state = world_step(params, state, self._action)
+      obs = synth.synthesize(params, new_state, keys)
+      copy_state_(state, new_state)
+      return obs
+
+    def warmup():
+      copy_state_(state, world_step(params, state, self._zero))
+
+    self._step_fn = graphs.CapturedStep(fused, self._device, pool=self._pool)
+    self._warmup_fn = graphs.CapturedStep(warmup, self._device,
+                                          pool=self._pool)
+
   def reset(self, *args: Any, **kwargs: Any) -> Observations:
     self._episode += 1
-    self._state = init_scene(
+    scene = init_scene(
         self._town,
         spawn_point=self._spawn_point,
         destination=self._destination_idx,
@@ -403,27 +458,33 @@ class CUDASimulator(Simulator):
         jax_seed=self._seed + self._episode,
         device=self._device,
     )
-    zero = torch.zeros((1, 3), dtype=torch.float32, device=self._device)
+    if self._state is None:
+      self._state = scene
+      self._compile()
+    else:
+      # Into the buffers the captured steps read: rebinding would leave
+      # them reading the last episode's.
+      copy_state_(self._state, scene)
     for _ in range(self._warmup_steps):
-      self._state = world_step(self._params, self._state, zero)
+      self._warmup_fn()
     # The first observation comes from the current state: no step.
     return self._materialise(
         synth.synthesize(self._params, self._state, self._device_keys))
 
   def step(self, action: Any, *args: Any, **kwargs: Any) -> Observations:
     action = _to_action_array(action)
-    self._state = world_step(self._params, self._state,
-                             torch.as_tensor(action[None],
-                                             device=self._device))
+    self._action.copy_(torch.as_tensor(action[None]))
     self._last_action = action
-    return self._materialise(
-        synth.synthesize(self._params, self._state, self._device_keys))
+    # The graph's own tensors: _materialise copies them to the host.
+    return self._materialise(self._step_fn())
 
   def _materialise(self, obs: Mapping[str, torch.Tensor]) -> Observations:
+    """The sensors' values: host copies (an observation may be a live
+    buffer, or the graph's own tensor, which the next step overwrites)."""
     for key, value in obs.items():
       sensor = self._sensor_suite.get(key)
       if isinstance(sensor, DeviceSensor):
-        sensor.set_value(value[0].cpu().numpy())
+        sensor.set_value(value[0].to("cpu", copy=True).numpy())
     return self._sensor_suite.get_observations()
 
   def render(self, mode: str = "rgb_array", *args: Any,
@@ -471,3 +532,5 @@ class CUDASimulator(Simulator):
 
   def close(self) -> None:
     self._state = None
+    self._step_fn = self._warmup_fn = None
+    self._owned_steps = {}

@@ -63,6 +63,7 @@ def test_import_and_rollout_without_jax():
       "from oatomobile_torch.utils import loggers, profiling\n"
       "from oatomobile_torch import graphs\n"
       "from oatomobile_torch.parallel import dp\n"
+      "from oatomobile_torch.parallel import mesh\n"
       "from oatomobile_torch.envs.multi_town import MultiTownBatchedEnv\n"
       "from oatomobile_torch.sensors import cameras\n"
       "from oatomobile_torch.utils import graphics\n"
