@@ -58,8 +58,15 @@ Needs one CUDA card and the CUDA toolkit (nvcc).  It:
  12. runs the single-scene API: ``carnovel.load`` of a Town03 task with
      the default sensors (lidar included), the ``AutopilotAgent`` through
      ``EnvironmentLoop`` for 100 steps (one splat launch at reset and one
-     a step), then the single-scene ``DIMAgent`` for 5 steps on the card
-     and on the CPU (actions and ego-frame plans within 1e-3);
+     a step); then the learned single-scene agents, whose act runs as a
+     captured step (the ``DIMAgent``, a K = 4 ``RIPAgent`` with WCM and
+     the ``CILAgent``, published widths, seeded weights): each for
+     DIM_AGENT_STEPS steps on the card and on the CPU (actions and
+     ego-frame plans within DIM_AGENT_ATOL), then for AGENT_STEPS steps
+     on the card eager (``_EagerStep``) and captured in turn from the same
+     seed (observations, plans and actions bit for bit; one splat at
+     reset and one a step), with the steps/s of both and the agent's and
+     the env step's host ms a step;
  13. holds packed collection on the card against the CPU:
      ``collect_packed("Town02", ..., num_episodes=2, num_steps=120,
      num_frame_skips=10, seed=21)`` on each (device packing), with the
@@ -90,6 +97,18 @@ Needs one CUDA card and the CUDA toolkit (nvcc).  It:
      memory, the epochs' losses, the val loss and the checkpoint; then
      loads ``model-best.pt`` through ``benchmarks.run``'s loader into a
      ``DIMAgent`` and takes one single-scene step on the card;
+15b. runs the experiments (``oatomobile_torch.experiments``) over
+     the training path's pack and its CIL and K = 4 RIP checkpoints
+     (linked into the run's directory: nothing is collected or trained
+     twice): ``pipeline.evaluate`` of EXPERIMENT_POLICIES (the autopilot,
+     RIP-WCM, DIM from member 0, CIL) over the whole CARNOVEL (27 tasks)
+     and CoRL2017 (150 tasks) suites, one episode a task, the horizon cut
+     to EXPERIMENT_HORIZON, row by row with each row's seconds, env
+     steps/s and splat launches (each learned row one a step per town
+     group, the autopilot's none); ``publish`` renders RESULTS.md (its
+     table rows printed); then one ``train_in_the_loop.run_round`` at
+     LOOP_ROUND's size (collect, train DIM, the Town01 rollout and
+     CARNOVEL, one splat a step of each);
  16. holds the compiled rollout against the private eager loop it
      replaced on four paths: the autopilot bench configuration (1024
      scenes), one 24-scene collection chunk of the training path (noise
@@ -102,9 +121,9 @@ Needs one CUDA card and the CUDA toolkit (nvcc).  It:
      splat once a step where the path splats.  Prints per path each run's
      ms a step and env steps/s (``utils.profiling.timed``), then those of
      the graph's replays alone, the captures' seconds and reserved bytes,
-     and per mode the device's busy ms, kernels and idle share a step
-     (``utils.profiling.device_busy`` over GRAPH_PROFILE_STEPS more steps,
-     against the eager runs' median step and the replays' step), and the
+     and for the replays (GRAPH_PROFILE_MODES) the device's busy ms,
+     kernels and idle share a step (``utils.profiling.device_busy`` over
+     GRAPH_PROFILE_STEPS more steps, against the replays' step), and the
      phase's seconds by part (set-up, runs in turn, replays alone,
      profiler passes);
  17. drives the cameras, the game-state masks and the human render: holds
@@ -199,6 +218,9 @@ RIP_MEMBERS = 4
 SINGLE_SCENE_TASK = "AbnormalTurns0-v0"
 SINGLE_SCENE_STEPS = 100
 DIM_AGENT_STEPS, DIM_AGENT_ATOL = 5, 1e-3
+# The learned single-scene agents (DIM, RIP-WCM with K = RIP_MEMBERS, CIL),
+# captured against eager on the card over AGENT_STEPS steps.
+AGENT_STEPS = 20
 
 # Collection on the card against the CPU (the JAX package's
 # tests/test_datasets_extra.py size) and its limits: uint8 counts, the
@@ -219,6 +241,16 @@ TRAIN_TOWN = "Town01"
 TRAIN_COLLECT = dict(num_episodes=64, num_steps=400, num_vehicles=16,
                      noise=0.2, seed=0)
 TRAIN_BATCH, DIM_EPOCHS, TIMED_UPDATES = 512, 2, 7
+# The experiments over the training path's pack and checkpoints:
+# the pipeline's evaluation of four policies over the whole CARNOVEL and
+# CoRL2017 suites, one episode a task, the horizon cut for the time limit
+# (the full 1500-step autopilot run is the CARNOVEL phase's); one
+# train-in-the-loop round at a cut scale (at 120 steps a 24-episode round
+# would hold fewer samples than a batch of 256: no update).
+EXPERIMENT_HORIZON = 64
+EXPERIMENT_POLICIES = ("autopilot", "rip_wcm", "dim", "cil")
+LOOP_ROUND = dict(episodes=24, num_steps=400, chunk_episodes=24, epochs=1,
+                  batch_size=256, rollout_scenes=128, rollout_steps=64)
 # Steps of each rollout of the collection's breakdown (past 20 + future 80
 # + 20: packing finds windows in them).
 COLLECT_BREAKDOWN_STEPS = 120
@@ -231,6 +263,9 @@ GRAPH_STEPS = {"autopilot": 64, "collection": 32, "carnovel": 64,
                "dim": 8}
 GRAPH_PROFILE_STEPS = {"autopilot": 8, "collection": 8, "carnovel": 8,
                        "dim": 2}
+# The modes profiled: the replays only (the eager loop leaves the card
+# idle most of a step, and its passes cost the script's time).
+GRAPH_PROFILE_MODES = ("graph",)
 # Seconds of phase 16 by part (set-up, the runs in turn, the replays
 # alone, the profiler passes), summed over its paths.
 GRAPH_SPLIT = {}
@@ -642,43 +677,181 @@ def drive_single_scene(device="cuda", steps: int = SINGLE_SCENE_STEPS) -> int:
   return launches
 
 
-def check_dim_agent_card_against_cpu(device="cuda") -> None:
-  """The single-scene DIMAgent for DIM_AGENT_STEPS steps on ``device`` and
-  on the CPU, each on its own env of the same task and seed; fails when
-  an action differs by more than DIM_AGENT_ATOL."""
+def learned_agents(device="cuda") -> dict:
+  """name -> ``make(env)`` of the learned single-scene agents at published
+  widths, weights seeded 0 (RIP's K = RIP_MEMBERS members 0..K-1), on
+  ``device``: each records the ego-frame plans it tracks in ``plans``."""
+  import torch  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.baselines.learned import (CILAgent, DIMAgent,  # pylint: disable=import-outside-toplevel
+                                                  RIPAgent)
+  from oatomobile_torch.models import BehaviouralModel, ImitativeModel  # pylint: disable=import-outside-toplevel
+
+  def recording(cls, **kwargs):
+    class Recording(cls):  # pylint: disable=too-few-public-methods
+
+      def __call__(self, observation, **call_kwargs):
+        plan = super().__call__(observation, **call_kwargs)
+        self.plans.append(plan)
+        return plan
+
+    def make(env):
+      agent = Recording(env, **kwargs)
+      agent.plans = []
+      return agent
+    return make
+
+  def seeded(cls, shape):
+    return cls(shape, (100, 100), generator=torch.Generator().manual_seed(0),
+               device=device)
+
+  return {
+      "DIMAgent": recording(DIMAgent,
+                            model=seeded(ImitativeModel, (4, 2))),
+      "RIPAgent WCM K={}".format(RIP_MEMBERS): recording(
+          RIPAgent, algorithm="WCM", models=rip_ensemble(device)),
+      "CILAgent": recording(CILAgent,
+                            model=seeded(BehaviouralModel, (40, 2))),
+  }
+
+
+def check_agents_card_against_cpu(device="cuda") -> None:
+  """Each learned single-scene agent (captured on the card) for
+  DIM_AGENT_STEPS steps on ``device`` and on the CPU, each on its own env
+  of the same task and seed; fails when an action or a plan differs by
+  more than DIM_AGENT_ATOL."""
+  import numpy as np  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.benchmarks.carnovel.benchmark import CARNOVEL  # pylint: disable=import-outside-toplevel
+
+  makers = {dev: learned_agents(dev) for dev in ("cpu", device)}
+  for name in makers[device]:
+    actions, plans = {}, {}
+    for dev in ("cpu", device):
+      env = CARNOVEL(device=dev).load(SINGLE_SCENE_TASK)
+      env.seed(0)
+      obs = env.reset()
+      agent = makers[dev][name](env)
+      actions[dev] = []
+      for _ in range(DIM_AGENT_STEPS):
+        action = agent.act(obs)
+        actions[dev].append(action.as_array())
+        obs, _, _, _ = env.step(action)
+      plans[dev] = agent.plans
+      env.close()
+    err = float(np.abs(np.asarray(actions["cpu"]) -
+                       np.asarray(actions[device])).max())
+    plan_err = float(np.abs(np.asarray(plans["cpu"]) -
+                            np.asarray(plans[device])).max())
+    print("check {} single scene card (captured) vs cpu ({}, {} steps): "
+          "actions_max_abs_diff={} plan_max_abs_diff={}m (limit {}) actions "
+          "{}".format(name, SINGLE_SCENE_TASK, DIM_AGENT_STEPS, err, plan_err,
+                      DIM_AGENT_ATOL,
+                      np.round(np.asarray(actions[device]), 4).tolist()))
+    if err > DIM_AGENT_ATOL or plan_err > DIM_AGENT_ATOL:
+      fail("the {} on the card disagrees with the CPU".format(name))
+
+
+def agent_run(make, eager: bool, steps: int) -> dict:
+  """``make(env)``'s agent on SINGLE_SCENE_TASK on the card for ``steps``
+  steps, every step eager (``_EagerStep``) or captured: every step's
+  observations, plans and actions on the host, the seconds with and
+  without the reset, the agent's and the env step's host ms a step, the
+  splat's launches."""
   import numpy as np  # pylint: disable=import-outside-toplevel
   import torch  # pylint: disable=import-outside-toplevel
-  from oatomobile_torch.baselines.learned import DIMAgent  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch import graphs  # pylint: disable=import-outside-toplevel
   from oatomobile_torch.benchmarks.carnovel.benchmark import CARNOVEL  # pylint: disable=import-outside-toplevel
-  from oatomobile_torch.models import ImitativeModel  # pylint: disable=import-outside-toplevel
-
-  actions, plans = {}, {}
-  for dev in ("cpu", device):
-    env = CARNOVEL(device=dev).load(SINGLE_SCENE_TASK)
+  from oatomobile_torch.ops import bev_cuda  # pylint: disable=import-outside-toplevel
+  captured_step = graphs.CapturedStep
+  if eager:
+    graphs.CapturedStep = _EagerStep
+  try:
+    env = CARNOVEL(device="cuda").load(SINGLE_SCENE_TASK)
     env.seed(0)
-    model = ImitativeModel((4, 2), (100, 100),
-                           generator=torch.Generator().manual_seed(0),
-                           device=dev)
+    bev_cuda.launches = 0
+    t0 = time.perf_counter()
     obs = env.reset()
-    agent = DIMAgent(env, model=model)
-    actions[dev], plans[dev] = [], []
-    for _ in range(DIM_AGENT_STEPS):
-      plans[dev].append(agent(dict(obs)))  # the ego-frame plan it tracks
+    trace = [{k: np.array(v) for k, v in obs.items()}]
+    t1 = time.perf_counter()
+    agent = make(env)
+    split = {"agent": [], "env step": []}
+    actions = []
+    for _ in range(steps):
+      ta = time.perf_counter()
       action = agent.act(obs)
-      actions[dev].append(action.as_array())
-      obs, _, _, _ = env.step(action)
+      tb = time.perf_counter()
+      obs, _, done, _ = env.step(action)
+      split["agent"].append(tb - ta)
+      split["env step"].append(time.perf_counter() - tb)
+      actions.append(action.as_array())
+      trace.append({k: np.array(v) for k, v in obs.items()})
+      if done:
+        break
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = bev_cuda.launches
     env.close()
-  err = float(np.abs(np.asarray(actions["cpu"]) -
-                     np.asarray(actions[device])).max())
-  plan_err = float(np.abs(np.asarray(plans["cpu"]) -
-                          np.asarray(plans[device])).max())
-  print("check DIMAgent single scene card vs cpu ({}, {} steps): "
-        "actions_max_abs_diff={} plan_max_abs_diff={}m (limit {}) actions "
-        "{}".format(SINGLE_SCENE_TASK, DIM_AGENT_STEPS, err, plan_err,
-                    DIM_AGENT_ATOL,
-                    np.round(np.asarray(actions[device]), 4).tolist()))
-  if err > DIM_AGENT_ATOL or plan_err > DIM_AGENT_ATOL:
-    fail("the DIM agent on the card disagrees with the CPU")
+  finally:
+    graphs.CapturedStep = captured_step
+  n = len(actions)
+  # From the step after the capture on, every act and env step is one
+  # replay (captured) or the same eager calls (eager).
+  skip = graphs.WARMUP_STEPS + 1
+  replay_s = sum(a + e for a, e in zip(split["agent"][skip:],
+                                       split["env step"][skip:]))
+  return {"trace": trace, "plans": agent.plans, "actions": actions,
+          "seconds": t2 - t0, "step_seconds": t2 - t1, "steps": n,
+          "launches": launches,
+          "split_ms": {k: round(1e3 * sum(v) / n, 3)
+                       for k, v in split.items()},
+          "replay_split_ms": {k: round(1e3 * sum(v[skip:]) / (n - skip), 3)
+                              for k, v in split.items()},
+          "replay_steps_per_s": (n - skip) / replay_s}
+
+
+def compare_captured_agents() -> int:
+  """The learned single-scene agents, captured against eager from the same
+  seed on the card (observations, plans and actions bit for bit), with
+  their steps/s; returns the captured runs' splat launches."""
+  import numpy as np  # pylint: disable=import-outside-toplevel
+  total = 0
+  for name, make in learned_agents("cuda").items():
+    runs = {mode: agent_run(make, mode == "eager", AGENT_STEPS)
+            for mode in ("eager", "captured")}
+    eager, captured = runs["eager"], runs["captured"]
+    differing = sorted({k for a, b in zip(eager["trace"], captured["trace"])
+                        for k in b if not np.array_equal(a[k], b[k])})
+    same = (eager["steps"] == captured["steps"] and not differing and
+            all(np.array_equal(a, b) for a, b in
+                zip(eager["plans"], captured["plans"])) and
+            np.array_equal(eager["actions"], captured["actions"]))
+    print("single scene {} ({}, default sensors): captured {} steps in "
+          "{:.3f}s = {:.1f} steps/s ({:.1f} without the reset and its "
+          "warm-up, {:.1f} over the steps after the capture), eager {:.3f}s "
+          "= {:.1f} steps/s ({:.1f} without the reset, {:.1f} over the same "
+          "steps); host ms a step captured {} / eager {}, over the steps "
+          "after the capture {} / {}; bev_splat launches captured {} / "
+          "eager {}; observations, plans and actions bit-equal over every "
+          "step: {}{}".format(
+              name, SINGLE_SCENE_TASK, captured["steps"],
+              captured["seconds"], captured["steps"] / captured["seconds"],
+              captured["steps"] / captured["step_seconds"],
+              captured["replay_steps_per_s"], eager["seconds"],
+              eager["steps"] / eager["seconds"],
+              eager["steps"] / eager["step_seconds"],
+              eager["replay_steps_per_s"], captured["split_ms"],
+              eager["split_ms"], captured["replay_split_ms"],
+              eager["replay_split_ms"], captured["launches"],
+              eager["launches"], same,
+              " (differing: {})".format(differing) if differing else ""))
+    if not same:
+      fail("the captured {} differs from the eager one".format(name))
+    if not np.isfinite(captured["actions"]).all():
+      fail("the {}'s actions are not finite".format(name))
+    if captured["launches"] != captured["steps"] + 1:
+      fail("bev_splat launched {} times in a captured {}-step single scene "
+           "of the {}".format(captured["launches"], captured["steps"], name))
+    total += captured["launches"]
+  return total
 
 
 def check_collect_card_against_cpu(workdir: str) -> None:
@@ -1055,6 +1228,95 @@ def drive_training_path(workdir: str) -> int:
   return launches
 
 
+def drive_experiments(workdir: str) -> dict:
+  """The experiments on the card over the training path's pack and
+  its CIL and K = RIP_MEMBERS RIP checkpoints (linked into the run's
+  directory, so nothing is collected or trained again): the pipeline's
+  evaluation of EXPERIMENT_POLICIES over the whole CARNOVEL and CoRL2017
+  suites, one episode a task at EXPERIMENT_HORIZON steps, row by row;
+  the rendered RESULTS.md; one train-in-the-loop round at LOOP_ROUND's
+  size.  Returns the splat's launches by row."""
+  import numpy as np  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.experiments import (pipeline, publish,  # pylint: disable=import-outside-toplevel
+                                            train_in_the_loop)
+  from oatomobile_torch.ops import bev_cuda  # pylint: disable=import-outside-toplevel
+
+  out = os.path.join(workdir, "experiments")
+  os.makedirs(out)
+  for name, target in (("packed", "pack"), ("cil", "cil"), ("rip", "rip")):
+    os.symlink(os.path.join(workdir, target), os.path.join(out, name))
+  suites = pipeline.suites()
+  groups = {suite: len({c["town"] for c in tasks.values()})
+            for suite, tasks in suites.items()}
+  launches = {}
+  for suite in ("carnovel", "corl2017"):
+    for name in EXPERIMENT_POLICIES:
+      bev_cuda.launches = 0
+      t0 = time.perf_counter()
+      pipeline.evaluate(
+          out=out, carnovel_policies=[name] if suite == "carnovel" else [],
+          corl_policies=[name] if suite == "corl2017" else [], episodes=1,
+          corl_episodes=1, num_models=RIP_MEMBERS,
+          horizon=EXPERIMENT_HORIZON, device="cuda")
+      seconds = time.perf_counter() - t0
+      row = "{}_{}".format(suite, name)
+      launches[row] = bev_cuda.launches
+      env_steps = len(suites[suite]) * EXPERIMENT_HORIZON
+      print("experiments {}: {} tasks x {} steps in {:.3f}s (scene set-up "
+            "and captures included) = {:.1f} env steps/s; bev_splat "
+            "launches={} ({} town groups)".format(
+                row, len(suites[suite]), EXPERIMENT_HORIZON, seconds,
+                env_steps / seconds, launches[row], groups[suite]))
+      # The autopilot reads privileged state: its rollout synthesises no
+      # LIDAR.  Every learned policy splats once a step per town group.
+      want = 0 if name == "autopilot" else groups[suite] * EXPERIMENT_HORIZON
+      if launches[row] != want:
+        fail("bev_splat launched {} times in the {} row ({} expected)"
+             .format(launches[row], row, want))
+  with open(os.path.join(out, "tables.json")) as fp:
+    tables = json.load(fp)
+  for suite in ("carnovel", "corl2017"):
+    for name in EXPERIMENT_POLICIES:
+      summary = tables.get(suite, {}).get(name)
+      if summary is None:
+        fail("the {} table has no {} row".format(suite, name))
+      rates = [summary[k] for k in ("success_rate", "collision_rate",
+                                    "timeout_rate")]
+      if not all(0.0 <= r <= 1.0 for r in rates):
+        fail("the {} {} row has a rate outside [0, 1]: {}".format(
+            suite, name, rates))
+  path = publish.publish(out, horizon=EXPERIMENT_HORIZON)
+  with open(path) as fp:
+    rows = [line for line in fp.read().splitlines()
+            if line.startswith("| ") and not line.startswith("| Agent")
+            and not line.startswith("| Family")]
+  print("experiments RESULTS.md ({} table rows): {}".format(
+      len(rows), " ".join(rows)))
+
+  bev_cuda.launches = 0
+  t0 = time.perf_counter()
+  result = train_in_the_loop.run_round(
+      0, out=os.path.join(workdir, "loop"), carnovel_episodes=1,
+      carnovel_horizon=EXPERIMENT_HORIZON, device="cuda", **LOOP_ROUND)
+  seconds = time.perf_counter() - t0
+  launches["loop_round"] = bev_cuda.launches
+  want = (LOOP_ROUND["num_steps"] + LOOP_ROUND["rollout_steps"] +
+          groups["carnovel"] * EXPERIMENT_HORIZON)
+  print("experiments train-in-the-loop round 0 ({}; CARNOVEL at {} steps): "
+        "{:.3f}s; bev_splat launches={} ({} expected: the collection, the "
+        "Town01 rollout and CARNOVEL, one a step); history {}".format(
+            LOOP_ROUND, EXPERIMENT_HORIZON, seconds, launches["loop_round"],
+            want, result))
+  if launches["loop_round"] != want:
+    fail("bev_splat launched {} times in the train-in-the-loop round"
+         .format(launches["loop_round"]))
+  if not (np.isfinite(result["town01_mean_distance_m"]) and
+          result["samples"] >= LOOP_ROUND["batch_size"]):
+    fail("the train-in-the-loop round's history is not finite or it had "
+         "fewer samples than a batch: {}".format(result))
+  return launches
+
+
 def _max_diff(a, b) -> float:
   """Largest |a - b| (float tensors) or count of differing elements."""
   if a.shape != b.shape:
@@ -1102,7 +1364,7 @@ def compare_eager_and_graph(name: str, scenes: int, steps: int,
   step_ms = {"eager": statistics.median(ms["eager"]),
              "graph": 1e3 * seconds / steps}
   device = {}
-  for mode in ms:
+  for mode in GRAPH_PROFILE_MODES:
     device[mode] = profiling.device_busy(
         lambda m=mode: profile(m, profile_steps), profile_steps,
         step_ms[mode])
@@ -2077,8 +2339,10 @@ def main() -> None:
 
   # -- 11. The single-scene API --------------------------------------------------
   launches_single = drive_single_scene()
-  check_dim_agent_card_against_cpu()
   lap("single scene")
+  check_agents_card_against_cpu()
+  launches_agents = compare_captured_agents()
+  lap("learned agents captured")
 
   # -- 12. Collection and trainer updates on the card against the CPU ---------
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
@@ -2087,7 +2351,11 @@ def main() -> None:
 
     # -- 13. The training path at full width -----------------------------------
     launches_collect = drive_training_path(workdir)
-  lap("collection and update checks, training path")
+    lap("collection and update checks, training path")
+
+    # -- 13b. The experiments over the training path's artifacts --------------
+    launches_experiments = drive_experiments(workdir)
+  lap("experiments")
 
   # -- 14. The compiled rollout against the eager loop ---------------------------
   drive_compiled_paths()
@@ -2135,6 +2403,8 @@ def main() -> None:
       "launches_mesh_rollout": launches_mesh,
       "launches_mesh_rollout_rank0": launches_mesh_ranks,
       "launches_single_scene_captured": launches_single_captured,
+      "launches_captured_agents": launches_agents,
+      "launches_experiments": sum(launches_experiments.values()),
       "max_abs_err": max_abs_err,
       "ms": ms,
       "plain_ms": plain_ms,

@@ -3,8 +3,11 @@ of the JAX package's ``baselines/learned/cil/agent.py``.
 
 Observation prep + the command (mode) from the goal's geometry ->
 BehaviouralModel plan -> interpolation -> SetPointAgent PID tracking.
+The forward runs as a ``common.CapturedAct``, as the JAX agent jits it;
+the mode is computed on the host and copied in with the observation.
 """
 
+import functools
 from typing import Mapping
 
 import numpy as np
@@ -15,6 +18,16 @@ from oatomobile_torch.baselines.base import SetPointAgent
 from oatomobile_torch.baselines.learned import common
 from oatomobile_torch.models.cil import BehaviouralModel
 from oatomobile_torch.models.dim import CONTEXT_KEYS
+
+
+def cil_forward(model: BehaviouralModel,
+                inputs: Mapping[str, torch.Tensor]) -> torch.Tensor:
+  """The plan [1, T, 2] from a ``CapturedAct``'s inputs (the raw
+  observation's model keys and the mode)."""
+  sample = model.transform(inputs)
+  context = common.model_context(sample, CONTEXT_KEYS + ("mode",))
+  with torch.no_grad():
+    return model(**context)
 
 
 class CILAgent(SetPointAgent):
@@ -30,6 +43,8 @@ class CILAgent(SetPointAgent):
     model.requires_grad_(False)
     model.eval()
     self._model = model
+    self._forward = common.CapturedAct(functools.partial(cil_forward, model),
+                                       next(model.parameters()).device)
 
   def __call__(self, observation: Mapping[str, np.ndarray],
                **kwargs) -> np.ndarray:
@@ -37,8 +52,5 @@ class CILAgent(SetPointAgent):
     # The command from the goal endpoint (signed angle, see
     # common.mode_from_goal).
     obs["mode"] = np.atleast_2d(common.mode_from_goal(obs["goal"]))
-    sample = self._model.transform(common.model_inputs(obs, self._model))
-    context = common.model_context(sample, CONTEXT_KEYS + ("mode",))
-    with torch.no_grad():
-      plan = self._model(**context)
-    return common.interpolate_plan(plan[0].cpu().numpy())  # [T, 2] -> 3D
+    plan = self._forward(common.act_inputs(obs))
+    return common.interpolate_plan(plan)  # [T, 2] -> 3D

@@ -2,9 +2,13 @@
 JAX package's ``baselines/learned/dim/agent.py``.
 
 Observation prep -> ``model.plan(num_steps=20, lr=5e-2)`` -> the 4-step
-plan interpolated to 40 steps -> SetPointAgent PID tracking.
+plan interpolated to 40 steps -> SetPointAgent PID tracking.  The plan
+runs as a ``common.CapturedAct`` (one captured step per ``num_steps``,
+``lr`` and ``epsilon`` read from 0-d buffers), as the JAX agent jits it
+with ``num_steps`` static.
 """
 
+import functools
 from typing import Mapping
 
 import numpy as np
@@ -14,6 +18,17 @@ import oatomobile_torch
 from oatomobile_torch.baselines.base import SetPointAgent
 from oatomobile_torch.baselines.learned import common
 from oatomobile_torch.models.dim import CONTEXT_KEYS, ImitativeModel
+
+
+def dim_plan(model: ImitativeModel, inputs: Mapping[str, torch.Tensor],
+             num_steps: int) -> torch.Tensor:
+  """The plan [1, T, 2] from a ``CapturedAct``'s inputs (the raw
+  observation's model keys, ``lr`` and ``epsilon``)."""
+  sample = model.transform(inputs)
+  context = common.model_context(sample, CONTEXT_KEYS)
+  with torch.no_grad():
+    return model.plan(num_steps=num_steps, goal=sample.get("goal"),
+                      lr=inputs["lr"], epsilon=inputs["epsilon"], **context)
 
 
 class DIMAgent(SetPointAgent):
@@ -30,15 +45,14 @@ class DIMAgent(SetPointAgent):
     model.requires_grad_(False)
     model.eval()
     self._model = model
+    self._plan = common.CapturedAct(functools.partial(dim_plan, model),
+                                    next(model.parameters()).device)
 
   def __call__(self, observation: Mapping[str, np.ndarray],
                **kwargs) -> np.ndarray:
     obs = common.prepare_observation(observation)
-    sample = self._model.transform(common.model_inputs(obs, self._model))
-    context = common.model_context(sample, CONTEXT_KEYS)
-    with torch.no_grad():
-      plan = self._model.plan(num_steps=kwargs.get("num_steps", 20),
-                              goal=sample.get("goal"),
-                              lr=kwargs.get("lr", 5e-2),
-                              epsilon=kwargs.get("epsilon", 1.0), **context)
-    return common.interpolate_plan(plan[0].cpu().numpy())  # [T, 2] -> 3D
+    plan = self._plan(
+        common.act_inputs(obs, lr=kwargs.get("lr", 5e-2),
+                          epsilon=kwargs.get("epsilon", 1.0)),
+        num_steps=kwargs.get("num_steps", 20))
+    return common.interpolate_plan(plan)  # [T, 2] -> 3D

@@ -9,6 +9,7 @@ reference's naming).  The JAX package vmaps the K members over stacked
 parameters; here the K members run in turn.
 """
 
+import functools
 from typing import Mapping, Optional, Sequence
 
 import numpy as np
@@ -47,10 +48,11 @@ def rip_plan(ensemble: Sequence[ImitativeModel],
              *,
              algorithm: str = "WCM",
              num_steps: int = 10,
-             lr: float = 1e-1,
-             epsilon: float = 1.0,
+             lr=1e-1,
+             epsilon=1.0,
              encoders: Optional[Sequence[nn.Module]] = None) -> torch.Tensor:
-  """RIP plan [B, T, 2] for goals [B, K_goals, 2] and the models' context.
+  """RIP plan [B, T, 2] for goals [B, K_goals, 2] and the models' context;
+  ``lr`` and ``epsilon`` are numbers or 0-d tensors.
 
   ``encoders``: the members at the encoder's precision (from
   ``dim.policy.encoder_copy``); the members themselves when None.  z
@@ -81,9 +83,25 @@ def rip_plan(ensemble: Sequence[ImitativeModel],
   return first.decode(x_best, zs[0])
 
 
+def rip_agent_plan(ensemble: nn.ModuleList, algorithm: str,
+                   inputs: Mapping[str, torch.Tensor],
+                   num_steps: int) -> torch.Tensor:
+  """The RIP plan [1, T, 2] from a ``CapturedAct``'s inputs (the raw
+  observation's model keys, ``lr`` and ``epsilon``)."""
+  first = ensemble[0]
+  sample = first.transform(inputs)
+  context = common.model_context(sample, CONTEXT_KEYS)
+  with torch.no_grad():
+    return rip_plan(ensemble, sample.get("goal"), context,
+                    algorithm=algorithm, num_steps=num_steps,
+                    lr=inputs["lr"], epsilon=inputs["epsilon"])
+
+
 class RIPAgent(SetPointAgent):
   """The robust imitative planning agent: one shared plan under the K
-  members' aggregated posteriors, 10 Adam steps at lr 1e-1."""
+  members' aggregated posteriors, 10 Adam steps at lr 1e-1.  The plan
+  runs as a ``common.CapturedAct`` (one captured step per ``num_steps``),
+  as the JAX agent jits it."""
 
   def __init__(self, environment: oatomobile_torch.Env, *, algorithm: str,
                models: Sequence[ImitativeModel], **kwargs) -> None:
@@ -100,17 +118,15 @@ class RIPAgent(SetPointAgent):
     self._ensemble.requires_grad_(False)
     self._ensemble.eval()
     self._algorithm = algorithm
+    self._plan = common.CapturedAct(
+        functools.partial(rip_agent_plan, self._ensemble, algorithm),
+        next(self._ensemble.parameters()).device)
 
   def __call__(self, observation: Mapping[str, np.ndarray],
                **kwargs) -> np.ndarray:
-    first = self._ensemble[0]
     obs = common.prepare_observation(observation)
-    sample = first.transform(common.model_inputs(obs, first))
-    context = common.model_context(sample, CONTEXT_KEYS)
-    with torch.no_grad():
-      plan = rip_plan(self._ensemble, sample.get("goal"), context,
-                      algorithm=self._algorithm,
-                      num_steps=kwargs.get("num_steps", 10),
-                      lr=kwargs.get("lr", 1e-1),
-                      epsilon=kwargs.get("epsilon", 1.0))
-    return common.interpolate_plan(plan[0].cpu().numpy())
+    plan = self._plan(
+        common.act_inputs(obs, lr=kwargs.get("lr", 1e-1),
+                          epsilon=kwargs.get("epsilon", 1.0)),
+        num_steps=kwargs.get("num_steps", 10))
+    return common.interpolate_plan(plan)

@@ -1,0 +1,22 @@
+"""The research pipeline: the port of the JAX package's experiment
+scripts (``scripts/``), each runnable as ``python -m
+oatomobile_torch.experiments.<name>`` (``--cpu`` for the CPU).
+
+- ``pipeline``: a Town01 collection mix, merged; RIP and CIL trained;
+  the CARNOVEL and CoRL2017 tables of the batched policies
+  (``scripts/experiment_r4.py``);
+- ``round5``: the round-5 defaults on top of ``pipeline``
+  (``scripts/experiment_r5.py``);
+- ``train_in_the_loop``: collect, train DIM (resumed), evaluate, for
+  several rounds (``scripts/train_in_the_loop.py``);
+- ``eval_carnovel_agents``: the autopilot, DIM and RIP-WCM/MA on CARNOVEL
+  from the newest ensemble epoch (``scripts/eval_carnovel_agents.py``);
+- ``headtohead``: RIP-WCM against DIM at 20 episodes a task
+  (``scripts/headtohead_r5.py``);
+- ``publish``: ``RESULTS.md`` from the tables
+  (``scripts/post_experiment_r5.py``), written under the run's output
+  directory only.
+
+Every experiment writes under its output directory (``RUN_OUT`` or
+``LOOP_OUT``) and nowhere else.
+"""

@@ -37,11 +37,11 @@ def check_context(context: Mapping[str, torch.Tensor], keys) -> None:
 
 
 def adam_update(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
-                count: int, lr: float, b1: float = 0.9, b2: float = 0.999,
+                count: int, lr, b1: float = 0.9, b2: float = 0.999,
                 eps: float = 1e-8, eps_root: float = 0.0):
   """One ``optax.adam(lr)`` step: returns (update, mu, nu).  ``count`` is
   the step's number counted from 1 (optax increments before the bias
-  correction)."""
+  correction); ``lr`` a number or a 0-d tensor."""
   mu = (1 - b1) * g + b1 * mu
   nu = (1 - b2) * g**2 + b2 * nu
   mu_hat = mu / (1 - np.float32(b1)**np.float32(count))
@@ -52,7 +52,7 @@ def adam_update(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
 
 def best_adam_iterate(loss_fn: Callable[[torch.Tensor], torch.Tensor],
                       x0: torch.Tensor, num_steps: int,
-                      lr: float) -> torch.Tensor:
+                      lr) -> torch.Tensor:
   """Runs ``num_steps`` Adam steps on ``x0`` ([B, ...]) against the
   per-scene loss ``loss_fn(x)`` ([B]) and returns, per scene, the iterate
   whose loss was lowest.  The best loss starts at +inf, so the first
@@ -84,14 +84,16 @@ def best_adam_iterate(loss_fn: Callable[[torch.Tensor], torch.Tensor],
 
 
 def goal_likelihood(y: torch.Tensor, goal: torch.Tensor,
-                    epsilon: float = 1.0) -> torch.Tensor:
+                    epsilon=1.0) -> torch.Tensor:
   """Per-scene [B] log-likelihood of the plan endpoint ``y[..., -1, :]``
-  under an equal mixture of isotropic normals (scale ``epsilon``) at the K
-  goals ``goal`` [B, K, D]."""
+  under an equal mixture of isotropic normals (scale ``epsilon``, a number
+  or a 0-d tensor) at the K goals ``goal`` [B, K, D]."""
   _, K, D = goal.shape
   diff = y[..., -1, :][:, None, :] - goal  # [B, K, D]
-  comp_logp = (-0.5 * ((diff / epsilon)**2).sum(-1) -
-               D * float(np.log(np.float32(epsilon))) - 0.5 * D * LOG_2PI)
+  log_epsilon = (torch.log(epsilon) if isinstance(epsilon, torch.Tensor)
+                 else float(np.log(np.float32(epsilon))))
+  comp_logp = (-0.5 * ((diff / epsilon)**2).sum(-1) - D * log_epsilon -
+               0.5 * D * LOG_2PI)
   return (torch.logsumexp(comp_logp, dim=-1) -
           float(np.log(np.float32(K))))
 
@@ -164,11 +166,13 @@ class ImitativeModel(nn.Module):
   def plan(self,
            num_steps: int = 10,
            goal: Optional[torch.Tensor] = None,
-           lr: float = 1e-1,
-           epsilon: float = 1.0,
+           lr=1e-1,
+           epsilon=1.0,
            **context: torch.Tensor) -> torch.Tensor:
     """A local mode [B, T, 2] of the imitation posterior: ``num_steps``
-    Adam steps from the prior mean (zeros), the best iterate decoded."""
+    Adam steps from the prior mean (zeros), the best iterate decoded.
+    ``lr`` and ``epsilon`` are numbers or 0-d tensors (a captured step
+    reads them from its buffers)."""
     if "visual_features" not in context:
       raise ValueError("Missing `visual_features` keyword argument.")
     z = self.params_z(**context)
@@ -179,8 +183,8 @@ class ImitativeModel(nn.Module):
                   z: torch.Tensor,
                   num_steps: int = 10,
                   goal: Optional[torch.Tensor] = None,
-                  lr: float = 1e-1,
-                  epsilon: float = 1.0) -> torch.Tensor:
+                  lr=1e-1,
+                  epsilon=1.0) -> torch.Tensor:
     """``plan`` from a precomputed context encoding z [B, 64] (so the
     encoder may run at another precision while the planner stays f32)."""
 

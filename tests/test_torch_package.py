@@ -69,6 +69,8 @@ def test_import_and_rollout_without_jax():
       "from oatomobile_torch.utils import graphics\n"
       "from oatomobile_torch.baselines.rulebased.autopilot import run\n"
       "from oatomobile_torch.baselines.rulebased.blind import run\n"
+      "from oatomobile_torch.experiments import (eval_carnovel_agents, "
+      "headtohead, pipeline, publish, round5, train_in_the_loop)\n"
       "tasks = {t: dict(_TASKS[t], num_vehicles=2) for t in "
       "('Town02_Turn0-v0', 'Town02_Straight0-v0')}\n"
       "out = evaluate_batched(tasks, horizon=2, device='cpu')\n"
@@ -106,6 +108,8 @@ def test_rendering_modules_import_without_matplotlib():
       "from oatomobile_torch.baselines.learned.dim import train\n"
       "from oatomobile_torch.baselines.rulebased.autopilot import run\n"
       "from oatomobile_torch.baselines.rulebased.blind import run\n"
+      "from oatomobile_torch.experiments import (eval_carnovel_agents, "
+      "headtohead, pipeline, publish, round5, train_in_the_loop)\n"
       "bad = [m for m in sys.modules if m.split('.')[0] in "
       "('matplotlib', 'PIL', 'imageio', 'jax', 'oatomobile_tpu')]\n"
       "assert not bad, bad\n"
