@@ -109,6 +109,22 @@ Needs one CUDA card and the CUDA toolkit (nvcc).  It:
      table rows printed); then one ``train_in_the_loop.run_round`` at
      LOOP_ROUND's size (collect, train DIM, the Town01 rollout and
      CARNOVEL, one splat a step of each);
+15c. runs the studies and the diagnostics over the same pack and
+     checkpoints: ``profile_flow`` at PROFILE_FLOW_BATCH scenes (the
+     encoder, the flow's inverse, log_prob, the 20-step plan eager and as
+     a graph replay, the plan's share, the replays' busy ms and idle
+     share); ``rip_sweep`` of STUDY_VARIANTS over CARNOVEL at
+     STUDY_HORIZON steps; ``study_dim50`` (DIM at 50x50, one epoch at
+     batch 512, then the STUDY_FAMILY tasks at STUDY_HORIZON steps); the
+     diagnostics ``hero_stops``, ``stalls`` and ``town02`` on Town02,
+     ``busytown`` and ``hills`` (one episode a task), ``learned_failures``
+     with RIP-WCM on CoRL2017 Town01 and the data half of ``hills_viz``,
+     each DIAG_HORIZON steps; each part's seconds and splat launches (one
+     a step per town group on a learned path, none on the autopilot's);
+     then holds ``hero_stops`` captured against its eager loop bit for bit
+     and ``learned_failures``' counters on the card against the CPU over
+     DIAG_CHECK_STEPS steps of DIAG_CHECK_TASKS tasks (integers and flags
+     equal, floats within DIAG_FLOAT_ATOL);
  16. holds the compiled rollout against the private eager loop it
      replaced on four paths: the autopilot bench configuration (1024
      scenes), one 24-scene collection chunk of the training path (noise
@@ -251,6 +267,18 @@ EXPERIMENT_HORIZON = 64
 EXPERIMENT_POLICIES = ("autopilot", "rip_wcm", "dim", "cil")
 LOOP_ROUND = dict(episodes=24, num_steps=400, chunk_episodes=24, epochs=1,
                   batch_size=256, rollout_scenes=128, rollout_steps=64)
+# The studies and diagnostics over the same pack and checkpoints: the
+# flow profile at the DIM bench's width; the sweep's and the 50x50
+# study's CARNOVEL runs at a horizon cut to STUDY_HORIZON (1500), the
+# study on one family; the diagnostics at DIAG_SCENES scenes (hero_stops,
+# stalls) and DIAG_HORIZON steps (1500); learned_failures on the card
+# against the CPU over DIAG_CHECK_STEPS steps of its first
+# DIAG_CHECK_TASKS tasks.
+PROFILE_FLOW_BATCH, PROFILE_FLOW_ITERS = 1024, 5
+STUDY_VARIANTS = [["dim", 10], ["rip_wcm", 20]]
+STUDY_HORIZON, STUDY_FAMILY = 32, "Hills"
+DIAG_SCENES, DIAG_HORIZON = 32, 64
+DIAG_CHECK_TASKS, DIAG_CHECK_STEPS, DIAG_FLOAT_ATOL = 4, 8, 1e-4
 # Steps of each rollout of the collection's breakdown (past 20 + future 80
 # + 20: packing finds windows in them).
 COLLECT_BREAKDOWN_STEPS = 120
@@ -1317,6 +1345,138 @@ def drive_experiments(workdir: str) -> dict:
   return launches
 
 
+def drive_studies(workdir: str) -> dict:
+  """The studies and diagnostics on the card over the experiments'
+  directory (phase 15b's links to the training path's pack and
+  checkpoints), part by part with each part's seconds and splat
+  launches; then the captured diagnostic against its eager loop and the
+  learned taxonomy on the card against the CPU.  Returns the splat's
+  launches by part."""
+  # pylint: disable=import-outside-toplevel
+  import numpy as np
+  import torch
+  from oatomobile_torch.experiments import (pipeline, profile_flow,
+                                            rip_sweep, study_dim50)
+  from oatomobile_torch.experiments.diag import (busytown, hero_stops, hills,
+                                                 hills_viz, learned_failures,
+                                                 stalls, town02)
+  from oatomobile_torch.ops import bev_cuda
+
+  out = os.path.join(workdir, "experiments")
+  carnovel = pipeline.suites()["carnovel"]
+  groups = len({c["town"] for c in carnovel.values()})
+  family = {t: c for t, c in carnovel.items() if t.startswith(STUDY_FAMILY)}
+  seconds, launches = {}, {}
+
+  def part(name, fn, want):
+    bev_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    seconds[name] = time.perf_counter() - t0
+    launches[name] = bev_cuda.launches
+    if launches[name] != want:
+      fail("bev_splat launched {} times in the {} part ({} expected)".format(
+          launches[name], name, want))
+    return result
+
+  flow = part("profile_flow", lambda: profile_flow.run(
+      PROFILE_FLOW_BATCH, PROFILE_FLOW_ITERS, "cuda", profile=True), 0)
+  print("studies profile_flow (best of {}, CUDA events): {}".format(
+      PROFILE_FLOW_ITERS, profile_flow.line(flow)))
+  if not all(np.isfinite(v) and v > 0 for k, v in flow.items()
+             if k.endswith("_ms")):
+    fail("profile_flow's times are not finite and positive: {}".format(flow))
+
+  sweep = part("rip_sweep", lambda: rip_sweep.run(
+      out=out, variants=STUDY_VARIANTS, num_models=RIP_MEMBERS,
+      horizon=STUDY_HORIZON, device="cuda"),
+               len(STUDY_VARIANTS) * groups * STUDY_HORIZON)
+  dim50 = part("study_dim50", lambda: study_dim50.run(
+      out=out, epochs=1, episodes=1, horizon=STUDY_HORIZON, tasks=family,
+      batch=TRAIN_BATCH, device="cuda"), STUDY_HORIZON)
+  print("studies rip_sweep over CARNOVEL ({} tasks x {} steps): {}".format(
+      len(carnovel), STUDY_HORIZON, {k: {m: v[m] for m in (
+          "success_rate", "collision_rate", "mean_distance")}
+                                     for k, v in sweep.items()}))
+  print("studies study_dim50 (1 epoch at batch {}; {} x {} steps): "
+        "{}".format(TRAIN_BATCH, STUDY_FAMILY, STUDY_HORIZON, dim50))
+  if sorted(sweep) != sorted("{}_{}steps".format(n, k)
+                             for n, k in STUDY_VARIANTS):
+    fail("rip_sweep.json holds {}".format(sorted(sweep)))
+  if not np.isfinite(dim50["best_val_nll"]):
+    fail("the 50x50 DIM's best val NLL is not finite")
+
+  diags = (
+      ("hero_stops", lambda: hero_stops.run("Town02", DIAG_SCENES,
+                                            DIAG_HORIZON, "cuda"),
+       hero_stops.report, 0),
+      ("stalls", lambda: stalls.run("Town02", DIAG_SCENES, DIAG_HORIZON,
+                                    "cuda"), stalls.report, 0),
+      ("town02", lambda: town02.run("Town02", 1, DIAG_HORIZON, "cuda"),
+       town02.report, 0),
+      ("busytown", lambda: busytown.run(1, DIAG_HORIZON, device="cuda"),
+       lambda r: busytown.report(r).splitlines()[:9], 0),
+      ("hills", lambda: hills.run(1, DIAG_HORIZON, device="cuda"),
+       lambda r: hills.report(r).splitlines()[:3], 0),
+      ("learned_failures", lambda: learned_failures.run(
+          "rip_wcm", "corl2017", "Town01", 1, DIAG_HORIZON, ckpt_root=out,
+          device="cuda"), learned_failures.report, DIAG_HORIZON),
+      ("hills_viz", lambda: hills_viz.run(1, DIAG_HORIZON, device="cuda"),
+       lambda r: ["crash snapshots of {} scenes".format(
+           int(r["m"]["collided"].sum()))], 0),
+  )
+  results = {}
+  for name, run, report, want in diags:
+    results[name] = part(name, run, want)
+    print("diag {} ({} steps, {:.3f}s, bev_splat launches={}): {}".format(
+        name, DIAG_HORIZON, seconds[name], launches[name],
+        " | ".join(line.strip() for line in report(results[name]) if line)))
+
+  # The captured diagnostic step against its eager loop, bit for bit.
+  t0 = time.perf_counter()
+  eager = hero_stops.run("Town02", DIAG_SCENES, DIAG_HORIZON, "cuda",
+                         eager=True)
+  seconds["hero_stops eager"] = time.perf_counter() - t0
+  got = results["hero_stops"]["m"]
+  differing = [k for k in got if not np.array_equal(got[k], eager["m"][k])]
+  print("diag hero_stops captured against eager ({} scenes x {} steps): "
+        "bit-equal {} ({:.3f}s captured, {:.3f}s eager)".format(
+            DIAG_SCENES, DIAG_HORIZON, not differing, seconds["hero_stops"],
+            seconds["hero_stops eager"]))
+  if differing:
+    fail("the captured hero_stops differs from its eager loop in {}".format(
+        differing))
+
+  # The learned taxonomy on the card against the CPU.
+  tasks = learned_failures.suite_tasks("corl2017", "Town01", DIAG_CHECK_TASKS)
+  bridge = json.loads(pipeline.BRIDGE)
+  m = {}
+  for device in ("cpu", "cuda"):
+    policy = learned_failures.build_policy("rip_wcm", out, bridge, device)
+    m[device] = learned_failures.rollout(policy, "Town01",
+                                         list(tasks.values()), 1,
+                                         DIAG_CHECK_STEPS, device)
+  exact = [k for k in m["cpu"] if m["cpu"][k].dtype.kind != "f"]
+  floats = [k for k in m["cpu"] if m["cpu"][k].dtype.kind == "f"]
+  differing = [k for k in exact if not np.array_equal(m["cpu"][k],
+                                                      m["cuda"][k])]
+  float_err = max(float(np.abs(m["cpu"][k] - m["cuda"][k]).max())
+                  for k in floats)
+  print("diag learned_failures rip_wcm card against CPU ({} tasks x {} "
+        "steps): integers and flags equal {}, floats max_abs_diff {} "
+        "(bit-equal {})".format(DIAG_CHECK_TASKS, DIAG_CHECK_STEPS,
+                                not differing, float_err, float_err == 0))
+  if differing or float_err > DIAG_FLOAT_ATOL:
+    fail("learned_failures on the card differs from the CPU: {} {}".format(
+        differing, float_err))
+  print("studies and diagnostics seconds: {}; bev_splat launches: {}".format(
+      ", ".join("{} {:.3f}".format(k, v) for k, v in seconds.items()),
+      launches))
+  return launches
+
+
 def _max_diff(a, b) -> float:
   """Largest |a - b| (float tensors) or count of differing elements."""
   if a.shape != b.shape:
@@ -2355,7 +2515,11 @@ def main() -> None:
 
     # -- 13b. The experiments over the training path's artifacts --------------
     launches_experiments = drive_experiments(workdir)
-  lap("experiments")
+    lap("experiments")
+
+    # -- 13c. The studies and diagnostics over the same artifacts -------------
+    launches_studies = drive_studies(workdir)
+  lap("studies and diagnostics")
 
   # -- 14. The compiled rollout against the eager loop ---------------------------
   drive_compiled_paths()
@@ -2405,6 +2569,7 @@ def main() -> None:
       "launches_single_scene_captured": launches_single_captured,
       "launches_captured_agents": launches_agents,
       "launches_experiments": sum(launches_experiments.values()),
+      "launches_studies": sum(launches_studies.values()),
       "max_abs_err": max_abs_err,
       "ms": ms,
       "plain_ms": plain_ms,

@@ -15,8 +15,16 @@ oatomobile_torch.experiments.<name>`` (``--cpu`` for the CPU).
   (``scripts/headtohead_r5.py``);
 - ``publish``: ``RESULTS.md`` from the tables
   (``scripts/post_experiment_r5.py``), written under the run's output
-  directory only.
+  directory only;
+- ``rip_sweep``: RIP's aggregations and plan-step budgets on one ensemble
+  (``scripts/eval_rip_sweep.py``);
+- ``train_dim_full``: the scaled DIM run (``scripts/train_dim_full.py``);
+- ``study_dim50``: DIM at a 50x50 input (``scripts/study_dim50.py``);
+- ``demo_full_loop`` and ``demo_dashboard``: collect, train and drive;
+  a dashboard GIF (``scripts/demo_full_loop.py``, ``demo_dashboard.py``);
+- ``profile_flow``: the DIM plan's split (``scripts/profile_flow.py``);
+- ``diag``: the ``scripts/diag_*.py`` forensics.
 
-Every experiment writes under its output directory (``RUN_OUT`` or
-``LOOP_OUT``) and nowhere else.
+Every experiment writes under its output directory (``RUN_OUT``,
+``LOOP_OUT``, ``DEMO_OUT`` or an ``--out`` flag) and nowhere else.
 """

@@ -47,6 +47,9 @@ import time
 from typing import Callable, Dict, List, Mapping, Optional
 
 HORIZON = 1500  # the batched evaluator's, the suites' own
+# The plan -> control bridge's keyword arguments (RUN_BRIDGE's default).
+BRIDGE = ('{"use_brake": true, "curvature_slowdown": true, '
+          '"speed_gain": 1.2}')
 EVAL_SEED = 7
 T0 = time.time()
 
@@ -106,10 +109,7 @@ def knobs(**overrides) -> Knobs:
           "RUN_MIX",
           "[[0, 384], [8, 512], [24, 512], [56, 640], [100, 768]]")),
       chunk=int(env("RUN_CHUNK", 128)),
-      bridge=json.loads(env(
-          "RUN_BRIDGE",
-          '{"use_brake": true, "curvature_slowdown": true, '
-          '"speed_gain": 1.2}')),
+      bridge=json.loads(env("RUN_BRIDGE", BRIDGE)),
       policies=_names(env("RUN_POLICIES",
                           "autopilot,cil,dim,rip_wcm,rip_ma,rip_bcm")),
       corl_policies=_names(env("RUN_CORL_POLICIES",
@@ -166,7 +166,7 @@ def train(packed: str, *, out: Optional[str] = None,
 
   k = knobs(out=out, num_models=num_models, epochs=epochs, batch=batch,
             accum=accum)
-  if not _has_best(os.path.join(k.out, "rip", "ckpts"), "ensemble"):
+  if not has_best(os.path.join(k.out, "rip", "ckpts"), "ensemble"):
     log("train RIP K={}, {} epochs, batch {}".format(k.num_models, k.epochs,
                                                      k.batch))
     rip_train(packed, os.path.join(k.out, "rip"), num_models=k.num_models,
@@ -175,7 +175,7 @@ def train(packed: str, *, out: Optional[str] = None,
   else:
     log("ensemble-best exists")
 
-  if not _has_best(os.path.join(k.out, "cil", "ckpts"), "model"):
+  if not has_best(os.path.join(k.out, "cil", "ckpts"), "model"):
     log("train CIL, {} epochs, batch {}".format(k.epochs, k.batch))
     cil_train(packed, os.path.join(k.out, "cil"), batch_size=k.batch,
               num_epochs=k.epochs, device=device)
@@ -186,12 +186,12 @@ def train(packed: str, *, out: Optional[str] = None,
 # -- checkpoints of either package -----------------------------------------------
 
 
-def _has_best(ckpt_dir: str, prefix: str) -> bool:
+def has_best(ckpt_dir: str, prefix: str) -> bool:
   return any(os.path.exists(os.path.join(ckpt_dir, prefix + "-best" + ext))
              for ext in (".pt", ".flax"))
 
 
-def _checkpoint(ckpt_dir: str, prefix: str, name) -> str:
+def checkpoint_path(ckpt_dir: str, prefix: str, name) -> str:
   """The path of ``{prefix}-{name}`` (a name or an epoch): the port's
   ``.pt`` if there is one, else the JAX package's ``.flax``."""
   for ext in (".pt", ".flax"):
@@ -221,7 +221,7 @@ def read_ensemble(ckpt_dir: str, name="best", device="cuda") -> list:
   from oatomobile_torch.models.dim import ImitativeModel
   from oatomobile_torch.utils import checkpoint, flax_msgpack
 
-  path = _checkpoint(ckpt_dir, "ensemble", name)
+  path = checkpoint_path(ckpt_dir, "ensemble", name)
   if path.endswith(".flax"):
     tree = flax_msgpack.read(path)
 
@@ -252,7 +252,7 @@ def read_cil(ckpt_dir: str, device="cuda"):
   # pylint: disable=import-outside-toplevel
   from oatomobile_torch.models.cil import BehaviouralModel
   from oatomobile_torch.utils.checkpoint import read_params
-  return read_params(_checkpoint(ckpt_dir, "model", "best"),
+  return read_params(checkpoint_path(ckpt_dir, "model", "best"),
                      BehaviouralModel(output_shape=(40, 2), device=device))
 
 
@@ -292,6 +292,12 @@ def policies(*, out: Optional[str] = None, num_models: Optional[int] = None,
       "rip_ma": rip("MA"),
       "rip_bcm": rip("BCM"),
   }
+
+
+def train_log(train_dir: str, label: str = "dim") -> List[Dict]:
+  """A trainer's epoch records (``<train_dir>/logs/<label>_train.jsonl``)."""
+  with open(os.path.join(train_dir, "logs", label + "_train.jsonl")) as fp:
+    return [json.loads(line) for line in fp]
 
 
 def read_summary(path: str) -> Dict:

@@ -33,7 +33,7 @@ PACKAGE = os.path.join(ROOT, "oatomobile_torch")
 
 def test_import_and_rollout_without_jax():
   code = (
-      "import sys\n"
+      "import os, sys\n"
       "from oatomobile_torch.envs.batched import BatchedEnv\n"
       "from oatomobile_torch import models\n"
       "from oatomobile_torch.models import convert\n"
@@ -71,6 +71,13 @@ def test_import_and_rollout_without_jax():
       "from oatomobile_torch.baselines.rulebased.blind import run\n"
       "from oatomobile_torch.experiments import (eval_carnovel_agents, "
       "headtohead, pipeline, publish, round5, train_in_the_loop)\n"
+      "from oatomobile_torch.experiments import (demo_dashboard, "
+      "demo_full_loop, profile_flow, rip_sweep, study_dim50, "
+      "train_dim_full)\n"
+      "from oatomobile_torch.experiments import diag\n"
+      "from oatomobile_torch.experiments.diag import (busytown, "
+      "busytown_viz, common, hero_stops, hills, hills_viz, "
+      "learned_failures, stalls, town02)\n"
       "tasks = {t: dict(_TASKS[t], num_vehicles=2) for t in "
       "('Town02_Turn0-v0', 'Town02_Straight0-v0')}\n"
       "out = evaluate_batched(tasks, horizon=2, device='cpu')\n"
@@ -85,6 +92,10 @@ def test_import_and_rollout_without_jax():
       "assert (stats['distance'] > 0).all()\n"
       "bad = [m for m in sys.modules if m.split('.')[0] in "
       "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'oatomobile_tpu')]\n"
+      "assert not bad, bad\n"
+      "scripts = os.path.join(os.getcwd(), 'scripts')\n"
+      "bad = [m for m, mod in list(sys.modules.items()) if "
+      "(getattr(mod, '__file__', None) or '').startswith(scripts)]\n"
       "assert not bad, bad\n"
       "print('clean')\n")
   env = dict(os.environ, PYTHONPATH=ROOT)
@@ -110,6 +121,13 @@ def test_rendering_modules_import_without_matplotlib():
       "from oatomobile_torch.baselines.rulebased.blind import run\n"
       "from oatomobile_torch.experiments import (eval_carnovel_agents, "
       "headtohead, pipeline, publish, round5, train_in_the_loop)\n"
+      "from oatomobile_torch.experiments import (demo_dashboard, "
+      "demo_full_loop, profile_flow, rip_sweep, study_dim50, "
+      "train_dim_full)\n"
+      "from oatomobile_torch.experiments import diag\n"
+      "from oatomobile_torch.experiments.diag import (busytown, "
+      "busytown_viz, common, hero_stops, hills, hills_viz, "
+      "learned_failures, stalls, town02)\n"
       "bad = [m for m in sys.modules if m.split('.')[0] in "
       "('matplotlib', 'PIL', 'imageio', 'jax', 'oatomobile_tpu')]\n"
       "assert not bad, bad\n"
@@ -126,6 +144,18 @@ def test_sources_never_import_jax():
   pattern = re.compile(
       r"^\s*(import|from)\s+"
       r"(jax|jaxlib|flax|optax|msgpack|oatomobile_tpu)\b", re.M)
+  for folder, _, files in os.walk(PACKAGE):
+    for name in files:
+      if name.endswith(".py"):
+        with open(os.path.join(folder, name)) as fp:
+          assert not pattern.search(fp.read()), name
+
+
+def test_sources_never_import_scripts():
+  """The port copies what it needs from the JAX package's ``scripts/``:
+  no module of it imports one of them or puts them on the path."""
+  pattern = re.compile(r"^\s*(import|from)\s+scripts\b|['\"]scripts['\"]",
+                       re.M)
   for folder, _, files in os.walk(PACKAGE):
     for name in files:
       if name.endswith(".py"):
@@ -160,6 +190,21 @@ def test_entry_points_default_to_cuda(tmp_path):
                lambda: dim_train.train(out, out),
                lambda: cil_train.train(out, out),
                lambda: rip_train.train(out, out)):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+      make()
+
+
+def test_diagnostics_and_studies_default_to_cuda(tmp_path):
+  if torch.cuda.is_available():
+    pytest.skip("a CUDA device is present: the default is usable here")
+  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.experiments import profile_flow, study_dim50
+  from oatomobile_torch.experiments.diag import hero_stops, learned_failures
+  for make in (lambda: hero_stops.run(scenes=1, horizon=1),
+               lambda: learned_failures.run("autopilot", horizon=1,
+                                            max_tasks=1),
+               lambda: profile_flow.run(2, 1),
+               lambda: study_dim50.run(out=str(tmp_path), epochs=1)):
     with pytest.raises(RuntimeError, match="device='cpu'"):
       make()
 
