@@ -40,7 +40,10 @@ Needs one CUDA card and the CUDA toolkit (nvcc).  It:
      rollout, then a timed one with the kernels' launch counts set to 0
      just before it and read just after (one splat a step), and the
      stages of one policy call (observe, encoder, planner, bridge) on CUDA
-     events;
+     events; then the DIM entry (``oatomobile_torch.entry``): its
+     loss on the card against the CPU on the same seeded params (rtol
+     ENTRY_RTOL) and its ``capture`` replays against the eager call, bit
+     for bit, over ENTRY_CALLS calls on new inputs;
  10. holds the batched evaluator on the card against the CPU: two CoRL2017
      Town02 tasks at their configured 100 NPCs, 2 episodes each, through
      ``evaluate_batched`` with the autopilot for 30 steps (per episode
@@ -106,9 +109,12 @@ Needs one CUDA card and the CUDA toolkit (nvcc).  It:
      to EXPERIMENT_HORIZON, row by row with each row's seconds, env
      steps/s and splat launches (each learned row one a step per town
      group, the autopilot's none); ``publish`` renders RESULTS.md (its
-     table rows printed); then one ``train_in_the_loop.run_round`` at
-     LOOP_ROUND's size (collect, train DIM, the Town01 rollout and
-     CARNOVEL, one splat a step of each);
+     table rows printed); ``round2.evaluate`` of ROUND2_POLICY over
+     CARNOVEL at ROUND2_HORIZON steps (the flat agents_summary.json, one
+     splat a step per town group); ``publish_r3`` and ``publish_r4`` over
+     the same tables, each RESULTS.md checked as it is written; then one
+     ``train_in_the_loop.run_round`` at LOOP_ROUND's size (collect, train
+     DIM, the Town01 rollout and CARNOVEL, one splat a step of each);
 15c. runs the studies and the diagnostics over the same pack and
      checkpoints: ``profile_flow`` at PROFILE_FLOW_BATCH scenes (the
      encoder, the flow's inverse, log_prob, the 20-step plan eager and as
@@ -163,7 +169,10 @@ Needs one CUDA card and the CUDA toolkit (nvcc).  It:
      autopilot rollout with the LIDAR (MESH_STEPS steps, one splat launch
      a step) against the mesh-less rollout, and one DIM update at
      published widths with ``mesh=`` against one without, each bit for
-     bit; (b) MESH_RANKS ranks spawned on the one card over gloo (each
+     bit, then ``entry.dryrun`` in the same process group (rollout ->
+     packed windows -> one ensemble step on the 1x1 mesh: its four lines,
+     DRYRUN's numbers, a finite loss, DRYRUN_STEPS splat launches); (b)
+     MESH_RANKS ranks spawned on the one card over gloo (each
      under MESH_RANK_SECONDS, a failed or hung rank fails the script): the
      sharded 64-scene rollout with the LIDAR, gathered, against the single
      process (hero_xy, stats and the final LIDAR bit for bit, the same
@@ -196,7 +205,10 @@ or outside a checkout of the repository, it exits 1 and prints no result.
 """
 
 import argparse
+import contextlib
 import ctypes
+import faulthandler
+import io
 import json
 import os
 import statistics
@@ -263,8 +275,12 @@ TRAIN_BATCH, DIM_EPOCHS, TIMED_UPDATES = 512, 2, 7
 # (the full 1500-step autopilot run is the CARNOVEL phase's); one
 # train-in-the-loop round at a cut scale (at 120 steps a 24-episode round
 # would hold fewer samples than a batch of 256: no update).
-EXPERIMENT_HORIZON = 64
+EXPERIMENT_HORIZON = 32
 EXPERIMENT_POLICIES = ("autopilot", "rip_wcm", "dim", "cil")
+# Round 2's evaluation of RIP-BCM (10 plan steps) over CARNOVEL at
+# RUN_HORIZON ROUND2_HORIZON (1500), then the round-3 and round-4
+# publishers over the same tables.
+ROUND2_POLICY, ROUND2_HORIZON = "rip_bcm", 32
 LOOP_ROUND = dict(episodes=24, num_steps=400, chunk_episodes=24, epochs=1,
                   batch_size=256, rollout_scenes=128, rollout_steps=64)
 # The studies and diagnostics over the same pack and checkpoints: the
@@ -337,6 +353,16 @@ MESH_UPDATE_BATCH, MESH_UPDATE_RTOL = 64, 1e-5
 # CAMERA_SINGLE_SCENE_STEPS.  (d) The eager DIM update's device idle
 # share at the trainers' batch, over IDLE_UPDATES profiled updates.
 IDLE_BATCH, IDLE_UPDATES = 512, 3
+
+# The DIM entry: its loss on the card against the CPU (relative), and its
+# captured step against the eager call over ENTRY_CALLS calls on new
+# inputs, bit for bit.  The dry run at world size 1: 2 scenes, 115 steps
+# (one splat launch a step), 3 window centres a scene, 2 members.
+ENTRY_RTOL, ENTRY_CALLS = 1e-5, 5
+DRYRUN = dict(scenes=2, mesh=(1, 1), windows=6, batch=6,
+              lidar_shape=(3, 2, 100, 100, 2), lidar_dtype="uint8",
+              ensemble=2)
+DRYRUN_STEPS = 115
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bandwidth and
 # FP32 rate outside the tensor cores.
@@ -507,6 +533,60 @@ def check_dim_card_against_cpu() -> None:
             float(stats["cpu"]["distance"].mean())))
   if not same or dist_err > DIM_DISTANCE_ATOL:
     fail("the DIM rollout on the card disagrees with the rollout on the CPU")
+
+
+def entry_inputs(call: int, device) -> tuple:
+  """Seeded inputs of ``entry``'s shapes (NHWC visual features)."""
+  import numpy as np  # pylint: disable=import-outside-toplevel
+  import torch  # pylint: disable=import-outside-toplevel
+  rs = np.random.RandomState(call)
+  arrays = (rs.uniform(-5, 5, (2, 4, 2)), rs.uniform(size=(2, 100, 100, 2)),
+            rs.uniform(-3, 3, (2, 3)), rs.randint(0, 2, (2, 1)),
+            rs.randint(0, 3, (2, 1)))
+  return tuple(torch.tensor(a, dtype=torch.float32, device=device)
+               for a in arrays)
+
+
+def check_entry() -> None:
+  """(a) ``entry``: the DIM loss on the card against the CPU on the same
+  seeded params (the zero example and seeded inputs), then ``capture``'s
+  replays against the eager call on the card over ENTRY_CALLS calls on
+  new inputs and params, bit for bit."""
+  import torch  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch import entry, graphs  # pylint: disable=import-outside-toplevel
+  t0 = time.perf_counter()
+  fn_cpu, example = entry.entry("cpu")
+  fn, _ = entry.entry("cuda")
+  params = {k: v.to("cuda") for k, v in example[0].items()}
+  errs = []
+  for inputs in (example[1:], entry_inputs(0, "cpu")):
+    want = float(fn_cpu(example[0], *inputs))
+    got = float(fn(params, *(x.to("cuda") for x in inputs)))
+    errs.append(abs(got - want) / max(abs(want), 1e-30))
+  deterministic = torch.backends.cudnn.deterministic
+  torch.backends.cudnn.deterministic = True
+  try:
+    run = entry.capture(fn, (params,) + tuple(x.to("cuda")
+                                              for x in example[1:]))
+    captures = graphs.captures
+    equal = []
+    for call in range(ENTRY_CALLS):
+      args = ({k: v + 0.01 * call for k, v in params.items()},) + \
+          entry_inputs(call, "cuda")
+      equal.append(torch.equal(run(*args), fn(*args)))
+    captured = graphs.captures - captures
+  finally:
+    torch.backends.cudnn.deterministic = deterministic
+  print("entry: DIM loss card against CPU rel diff (zero example, seeded "
+        "inputs) {} (limit {}); captured against eager over {} calls ({} "
+        "warm-up, {} capture): bit-equal {}; {:.3f}s".format(
+            errs, ENTRY_RTOL, ENTRY_CALLS, graphs.WARMUP_STEPS, captured,
+            equal, time.perf_counter() - t0))
+  if max(errs) > ENTRY_RTOL:
+    fail("the entry's loss on the card disagrees with the CPU")
+  if not all(equal) or captured != 1:
+    fail("the captured entry differs from the eager call or was not "
+         "captured once")
 
 
 def drive_dim_path() -> int:
@@ -1320,6 +1400,7 @@ def drive_experiments(workdir: str) -> dict:
             and not line.startswith("| Family")]
   print("experiments RESULTS.md ({} table rows): {}".format(
       len(rows), " ".join(rows)))
+  launches_round2 = drive_round2_and_publishers(out, groups["carnovel"])
 
   bev_cuda.launches = 0
   t0 = time.perf_counter()
@@ -1342,6 +1423,82 @@ def drive_experiments(workdir: str) -> dict:
           result["samples"] >= LOOP_ROUND["batch_size"]):
     fail("the train-in-the-loop round's history is not finite or it had "
          "fewer samples than a batch: {}".format(result))
+  return launches, launches_round2
+
+
+def _table_agents(text: str) -> list:
+  """The agents of each agent table of a RESULTS.md, in its order."""
+  tables, rows = [], None
+  for line in text.splitlines():
+    if line.startswith("| Agent "):
+      rows = []
+      tables.append(rows)
+    elif line.startswith("| ") and rows is not None and "---" not in line:
+      rows.append(line.split(" | ")[0][2:])
+    elif not line.startswith("|"):
+      rows = None
+  return tables
+
+
+def drive_round2_and_publishers(out: str, groups: int) -> int:
+  """(c) ``round2.evaluate`` of ROUND2_POLICY over CARNOVEL at
+  ROUND2_HORIZON steps on the experiments' ensemble: its flat
+  ``agents_summary.json`` and one splat a step per town group; (d) the
+  round-3 and round-4 publishers over the experiments' tables, each
+  RESULTS.md checked as it is written (round 3's rows in the order the
+  evaluation wrote them, round 4's in ``publish.ORDER``).  Returns the
+  round-2 row's splat launches."""
+  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.experiments import (publish, publish_r3,
+                                            publish_r4, round2)
+  from oatomobile_torch.ops import bev_cuda
+
+  bev_cuda.launches = 0
+  t0 = time.perf_counter()
+  table = round2.evaluate(out=out, policies=[ROUND2_POLICY],
+                          horizon=ROUND2_HORIZON, device="cuda")
+  seconds = time.perf_counter() - t0
+  launches = bev_cuda.launches
+  with open(os.path.join(out, "agents_summary.json")) as fp:
+    written = json.load(fp)
+  summary = written.get(ROUND2_POLICY, {})
+  print("round2 {} over CARNOVEL ({} tasks x {} steps, 10 plan steps): "
+        "{:.3f}s (scene set-up and captures included); bev_splat launches="
+        "{} ({} town groups); agents_summary.json {}".format(
+            ROUND2_POLICY, summary.get("episodes"), ROUND2_HORIZON, seconds,
+            launches, groups, {k: summary.get(k) for k in (
+                "success_rate", "collision_rate", "timeout_rate",
+                "mean_distance")}))
+  if written != table or list(written) != [ROUND2_POLICY]:
+    fail("round2's agents_summary.json holds {}".format(list(written)))
+  if not all(0.0 <= summary[k] <= 1.0 for k in (
+      "success_rate", "collision_rate", "timeout_rate")):
+    fail("the round-2 row has a rate outside [0, 1]: {}".format(summary))
+  if launches != groups * ROUND2_HORIZON:
+    fail("bev_splat launched {} times in the round-2 row ({} expected)"
+         .format(launches, groups * ROUND2_HORIZON))
+
+  with open(os.path.join(out, "tables.json")) as fp:
+    tables = json.load(fp)
+  labels = lambda names: [publish.POLICY_LABELS[n] for n in names]  # pylint: disable=unnecessary-lambda-assignment
+  for name, fn, title, order in (
+      ("publish_r3", publish_r3.publish_r3, "# Round-3 agent results\n",
+       lambda rows: list(rows)),
+      ("publish_r4", publish_r4.publish_r4, "# Round-4 agent results\n",
+       lambda rows: [n for n in publish.ORDER if n in rows])):
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+      path = fn(out)
+    seconds = time.perf_counter() - t0
+    with open(path) as fp:
+      text = fp.read()
+    want = [labels(order(tables[suite])) for suite in ("carnovel",
+                                                       "corl2017")]
+    got = _table_agents(text)
+    print("{}: {} in {:.3f}s, agent tables {}".format(
+        name, os.path.relpath(path, out), seconds, got))
+    if not text.startswith(title) or got != want:
+      fail("{} wrote {} (tables {} expected)".format(name, got, want))
   return launches
 
 
@@ -1959,14 +2116,18 @@ def _state_summary(env, final, stats) -> dict:
   return {k: v.cpu() for k, v in out.items()}
 
 
-def drive_mesh_world_one() -> int:
+def drive_mesh_world_one() -> tuple:
   """(a) NCCL at world size 1 on the card: ``BatchedEnv(mesh=make_mesh())``
   against the mesh-less env (the 1024-scene autopilot path with the LIDAR,
   MESH_STEPS steps), and one DIM update with ``mesh=`` against one
-  without, bit for bit; returns the splat's launches in the mesh rollout."""
+  without, bit for bit; then ``entry.dryrun`` in the same process group
+  (its four lines, the 1x1 mesh's numbers, a finite loss, one splat a
+  rollout step).  Returns the splat's launches in the mesh rollout and in
+  the dry run."""
   import datetime  # pylint: disable=import-outside-toplevel
   import torch  # pylint: disable=import-outside-toplevel
   import torch.distributed as dist  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch import entry  # pylint: disable=import-outside-toplevel
   from oatomobile_torch.envs.batched import BatchedEnv  # pylint: disable=import-outside-toplevel
   from oatomobile_torch.ops import bev_cuda  # pylint: disable=import-outside-toplevel
   from oatomobile_torch.parallel import mesh as mesh_lib  # pylint: disable=import-outside-toplevel
@@ -2006,6 +2167,14 @@ def drive_mesh_world_one() -> int:
           torch.equal(a, b) for i in (1, 2)
           for a, b in zip(with_mesh[i].values(), without[i].values())))
       backend = dist.get_backend()
+      # The dry run over the same group (its mesh from the world: 1x1).
+      printed = io.StringIO()
+      bev_cuda.launches = 0
+      t0 = time.perf_counter()
+      with contextlib.redirect_stdout(printed):
+        dry = entry.dryrun(device="cuda")
+      dry_seconds = time.perf_counter() - t0
+      dry_launches = bev_cuda.launches
     finally:
       dist.destroy_process_group()
   print("mesh (a) {} at world size 1, mesh {}: {} scenes x {} steps with "
@@ -2023,7 +2192,25 @@ def drive_mesh_world_one() -> int:
   if launches != MESH_STEPS:
     fail("bev_splat launched {} times in {} mesh steps".format(launches,
                                                                MESH_STEPS))
-  return launches
+  lines = printed.getvalue().splitlines()
+  for line in lines:
+    print("mesh (a) dryrun | " + line)
+  print("mesh (a) dryrun over {} at world size 1 in the same group: {} in "
+        "{:.3f}s (capture included); bev_splat launches={} ({} rollout "
+        "steps)".format(backend, {k: v for k, v in dry.items()},
+                        dry_seconds, dry_launches, DRYRUN_STEPS))
+  heads = [line.split(":")[0] for line in lines]
+  if heads != ["rollout", "collect", "train", "dryrun_multichip OK"]:
+    fail("the dry run printed {}".format(lines))
+  if any(dry[k] != v for k, v in DRYRUN.items()):
+    fail("the dry run's numbers {} are not the 1x1 mesh's {}".format(
+        dry, DRYRUN))
+  if not (dry["loss"] == dry["loss"] and abs(dry["loss"]) < float("inf")):
+    fail("the dry run's loss is not finite")
+  if dry_launches != DRYRUN_STEPS:
+    fail("bev_splat launched {} times in the dry run's {} steps".format(
+        dry_launches, DRYRUN_STEPS))
+  return launches, dry_launches
 
 
 def mesh_rank(rank: int, world: int, store: str, out: str) -> None:
@@ -2294,6 +2481,9 @@ def update_idle_share() -> None:
 
 
 def main() -> None:
+  # A fatal signal (a fault in native code) prints every thread's Python
+  # stack before the process dies.
+  faulthandler.enable()
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--prev-splat", action="append", default=[],
                       help="another design's bev_splat.cu to check and time "
@@ -2479,6 +2669,10 @@ def main() -> None:
 
   lap("DIM check and path")
 
+  # -- 8b. The DIM entry, card against CPU and captured against eager ---------
+  check_entry()
+  lap("entry")
+
   # -- 9. The batched evaluator on the card against the CPU --------------------
   check_eval_card_against_cpu()
 
@@ -2514,8 +2708,8 @@ def main() -> None:
     lap("collection and update checks, training path")
 
     # -- 13b. The experiments over the training path's artifacts --------------
-    launches_experiments = drive_experiments(workdir)
-    lap("experiments")
+    launches_experiments, launches_round2 = drive_experiments(workdir)
+    lap("experiments, round 2 and the publishers")
 
     # -- 13c. The studies and diagnostics over the same artifacts -------------
     launches_studies = drive_studies(workdir)
@@ -2537,8 +2731,8 @@ def main() -> None:
   lap("camera single scene")
 
   # -- 16. The device mesh ----------------------------------------------------------
-  launches_mesh = drive_mesh_world_one()
-  lap("mesh at world size 1 (NCCL)")
+  launches_mesh, launches_entry = drive_mesh_world_one()
+  lap("mesh at world size 1 (NCCL) and the dry run")
   launches_mesh_ranks = drive_mesh_two_ranks()
   lap("mesh over two ranks (gloo)")
 
@@ -2570,6 +2764,8 @@ def main() -> None:
       "launches_captured_agents": launches_agents,
       "launches_experiments": sum(launches_experiments.values()),
       "launches_studies": sum(launches_studies.values()),
+      "launches_entry": launches_entry,
+      "launches_round2": launches_round2,
       "max_abs_err": max_abs_err,
       "ms": ms,
       "plain_ms": plain_ms,

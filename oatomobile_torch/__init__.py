@@ -8,8 +8,8 @@ never jax or anything of ``oatomobile_tpu``.
 Entry points (``envs.batched.BatchedEnv``, ``envs.carla.CARLANavEnv`` and
 the ``"carla"`` simulator under it, ``benchmarks.batched_eval.
 evaluate_batched``, ``sim.make_params``, ``sim.init_scene_batch``,
-``python -m oatomobile_torch.bench``) run on ``device="cuda"`` unless the
-caller passes ``device="cpu"``.
+``python -m oatomobile_torch.bench``, ``python -m oatomobile_torch.entry``)
+run on ``device="cuda"`` unless the caller passes ``device="cpu"``.
 
 The public names are those of the JAX package's ``__init__`` (the core
 API of the reference), minus its compilation cache.

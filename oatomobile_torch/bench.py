@@ -1,7 +1,7 @@
 """Headline benchmark of the port: env steps/s at 1024 parallel BEV-sensor
 scenes on one CUDA device.
 
-    python -m oatomobile_torch.bench
+    python -m oatomobile_torch.bench [--cpu]
     BENCH_MODE=dim python -m oatomobile_torch.bench
 
 The workloads are the JAX package's ``bench.py``: Town01, 1024 scenes, 16
@@ -27,10 +27,14 @@ stages of one DIM policy call on CUDA events (both eager, op by op), and
 the device's busy time, kernel count and idle share per step of the
 captured rollout (``utils.profiling.device_busy``).
 
+``--cpu`` runs the same workload on the CPU (as the JAX ``bench.py``
+runs on whatever platform JAX has; ``BENCH_PROFILE`` needs the card).
+
 Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}, with
 ``vs_baseline`` the ratio to the 100k steps/s north-star target.
 """
 
+import argparse
 import json
 import os
 import sys
@@ -129,7 +133,14 @@ def dim_policy(size: int = 100, encoder_dtype: str = "float32",
                          encoder_dtype=encoder_dtype)
 
 
-def main() -> None:
+def main(argv=None) -> None:
+  parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+  parser.add_argument("--cpu", action="store_true",
+                      help="run on the CPU (default: the CUDA card)")
+  device = "cpu" if parser.parse_args(argv).cpu else "cuda"
+  profile = os.environ.get("BENCH_PROFILE") == "1"
+  if profile and device == "cpu":
+    raise ValueError("BENCH_PROFILE=1 times the card: it needs one")
   batch = int(os.environ.get("BENCH_BATCH", 1024))
   town = os.environ.get("BENCH_TOWN", "Town01")
   num_vehicles = int(os.environ.get("BENCH_VEHICLES", 16))
@@ -141,12 +152,13 @@ def main() -> None:
   torch.backends.cudnn.allow_tf32 = False
 
   env = BatchedEnv(town=town, batch_size=batch, num_vehicles=num_vehicles,
-                   route_capacity=1024, seed=0, device="cuda")
+                   route_capacity=1024, seed=0, device=device)
   policy, rollout_kwargs = None, {"compute": ("lidar",)}
   metric = "env_steps_per_sec_per_chip_1024bev"
   if mode == "dim":
     policy = dim_policy(int(os.environ.get("BENCH_DIM_INPUT", 100)),
-                        os.environ.get("BENCH_DIM_ENCODER_DTYPE", "float32"))
+                        os.environ.get("BENCH_DIM_ENCODER_DTYPE", "float32"),
+                        device)
     rollout_kwargs = {}
     metric = "dim_closed_loop_steps_per_sec_per_chip"
 
@@ -169,9 +181,10 @@ def main() -> None:
   print("diag: mode={} elapsed={:.2f}s batch={} steps={} dist/scene={:.1f}m "
         "collisions={} device={}".format(
             mode, elapsed, batch, steps, float(stats["distance"].mean()),
-            int(stats["collisions"].sum()), torch.cuda.get_device_name(0)),
+            int(stats["collisions"].sum()),
+            torch.cuda.get_device_name(0) if device == "cuda" else "cpu"),
         file=sys.stderr)
-  if os.environ.get("BENCH_PROFILE") == "1":
+  if profile:
     profile_steps = 16 if policy is None else 4
     print("layers_ms_per_step: " + json.dumps(
         layer_times(env, policy, steps=20 if policy is None else 5)),

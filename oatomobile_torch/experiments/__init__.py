@@ -7,6 +7,12 @@ oatomobile_torch.experiments.<name>`` (``--cpu`` for the CPU).
   (``scripts/experiment_r4.py``);
 - ``round5``: the round-5 defaults on top of ``pipeline``
   (``scripts/experiment_r5.py``);
+- ``round3``: the round-3 defaults on top of ``pipeline``
+  (``scripts/experiment_r3.py``);
+- ``round2``: the round-2 pipeline, RIP alone on a 200x200 pack and the
+  CARNOVEL agent comparison (``scripts/experiment_r2.py``), and
+  ``post_round2``: RIP-BCM, the CoRL2017 autopilot row, the flow profile
+  and the bench after it (``scripts/post_experiment.py``);
 - ``train_in_the_loop``: collect, train DIM (resumed), evaluate, for
   several rounds (``scripts/train_in_the_loop.py``);
 - ``eval_carnovel_agents``: the autopilot, DIM and RIP-WCM/MA on CARNOVEL
@@ -15,7 +21,9 @@ oatomobile_torch.experiments.<name>`` (``--cpu`` for the CPU).
   (``scripts/headtohead_r5.py``);
 - ``publish``: ``RESULTS.md`` from the tables
   (``scripts/post_experiment_r5.py``), written under the run's output
-  directory only;
+  directory only; ``publish_r3`` and ``publish_r4`` the round-3 and
+  round-4 renderings (``scripts/post_experiment_r3.py``,
+  ``post_experiment_r4.py``);
 - ``rip_sweep``: RIP's aggregations and plan-step budgets on one ensemble
   (``scripts/eval_rip_sweep.py``);
 - ``train_dim_full``: the scaled DIM run (``scripts/train_dim_full.py``);

@@ -39,6 +39,7 @@ JAX package's ``.flax`` files (read without flax).
 """
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -52,10 +53,24 @@ BRIDGE = ('{"use_brake": true, "curvature_slowdown": true, '
           '"speed_gain": 1.2}')
 EVAL_SEED = 7
 T0 = time.time()
+# The log lines' tag: the round whose script runs the phases (``log_tag``).
+TAG = "r4"
 
 
-def log(msg: str, tag: str = "r4") -> None:
-  print("[{} {:.0f}s] {}".format(tag, time.time() - T0, msg), flush=True)
+def log(msg: str, tag: Optional[str] = None) -> None:
+  print("[{} {:.0f}s] {}".format(tag or TAG, time.time() - T0, msg),
+        flush=True)
+
+
+@contextlib.contextmanager
+def log_tag(tag: str):
+  """Within the block the phases' log lines carry ``tag``."""
+  global TAG
+  before, TAG = TAG, tag
+  try:
+    yield
+  finally:
+    TAG = before
 
 
 @dataclasses.dataclass
@@ -87,10 +102,17 @@ def default_out(name: str) -> str:
   return os.path.join(tempfile.gettempdir(), "oatomobile_torch_" + name)
 
 
-def knobs(**overrides) -> Knobs:
+def knobs(defaults: Optional[Mapping[str, str]] = None,
+          **overrides) -> Knobs:
   """The knobs from the environment now, with the given non-None
-  ``overrides`` (``Knobs`` field names) in their place."""
-  env = os.environ.get
+  ``overrides`` (``Knobs`` field names) in their place.  ``defaults``
+  (``RUN_*`` name -> value) replaces this pipeline's default of a knob
+  the environment does not set (another round's)."""
+  defaults = defaults or {}
+
+  def env(name, default):
+    return os.environ.get(name, defaults.get(name, default))
+
   k = Knobs(
       out=env("RUN_OUT", default_out("r4")),
       ep_steps=int(env("RUN_EP_STEPS", 500)),
@@ -125,10 +147,12 @@ def knobs(**overrides) -> Knobs:
 
 def collect(packed: str, *, out: Optional[str] = None, mix=None,
             ep_steps: Optional[int] = None, noise: Optional[float] = None,
-            chunk: Optional[int] = None, device="cuda") -> None:
+            chunk: Optional[int] = None, image_size=(100, 100),
+            device="cuda") -> None:
   """The collection mix, one pack per density (``OUT/pack_v<vehicles>``,
   seed ``1000 * (i + 1)`` for the mix's i-th entry), merged into
-  ``packed``; skipped when ``packed`` (or a part) exists."""
+  ``packed``; skipped when ``packed`` (or a part) exists.  The images are
+  packed at ``image_size`` (None: the sensors' own 200x200)."""
   from oatomobile_torch.datasets.carla import CARLADataset  # pylint: disable=import-outside-toplevel
 
   k = knobs(out=out, mix=mix, ep_steps=ep_steps, noise=noise, chunk=chunk)
@@ -147,7 +171,7 @@ def collect(packed: str, *, out: Optional[str] = None, mix=None,
         town="Town01", output_dir=part, num_episodes=eps,
         num_steps=k.ep_steps, num_vehicles=nv, noise=k.noise,
         seed=1000 * (mix_i + 1), chunk_episodes=k.chunk,
-        image_size=(100, 100), device=device)
+        image_size=image_size, device=device)
     log("  -> {} samples".format(n))
   total = CARLADataset.merge_packed(parts, packed)
   log("merged dataset: {} samples".format(total))

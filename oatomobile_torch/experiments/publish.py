@@ -17,7 +17,7 @@ import glob
 import json
 import os
 import shutil
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Sequence
 
 from oatomobile_torch.experiments import pipeline
 
@@ -53,12 +53,14 @@ def fmt_pct(x, ci=None):
   return "{:.1f}% ± {:.1f}".format(100 * x, 100 * ci)
 
 
-def render_table(suite_name, rows):
+def render_table(suite_name, rows, order: Optional[Sequence[str]] = ORDER):
+  """The suite's agent table, its rows in ``order`` (None: the order of
+  ``rows``); a policy of ``order`` without a row is left out."""
   lines = [
       "| Agent | Success | Collision | Timeout | Episodes |",
       "|---|---|---|---|---|",
   ]
-  for name in ORDER:
+  for name in list(rows) if order is None else order:
     if name not in rows:
       continue
     s = rows[name]
@@ -119,16 +121,44 @@ def render(tables: Mapping, out: str,
     if suite not in tables:
       continue
     md.append(render_table(label, tables[suite]))
-    for name in ("rip_wcm", "dim", "autopilot"):
-      src = os.path.join(out, "{}_{}".format(suite, name), "summary.json")
-      if name in tables[suite] and os.path.exists(src):
-        fam = pipeline.read_summary(src).get("per_family")
-        if fam:
-          md.append(render_families(
-              "{} ({})".format(label.split(" ")[0],
-                               POLICY_LABELS.get(name, name)), fam))
-        break
+    panel = family_panel(tables, out, suite, label)
+    if panel:
+      md.append(panel)
   return "\n".join(md)
+
+
+def merge_tables(out: str, results: str) -> dict:
+  """``OUT/tables*.json`` merged (split evaluations write several), also
+  written to ``results/tables.json``; the RIP and CIL training logs copied
+  into ``results``."""
+  os.makedirs(results, exist_ok=True)
+  tables = {}
+  for path in sorted(glob.glob(os.path.join(out, "tables*.json"))):
+    with open(path) as fp:
+      for suite, rows in json.load(fp).items():
+        tables.setdefault(suite, {}).update(rows)
+  with open(os.path.join(results, "tables.json"), "w") as fp:
+    json.dump(tables, fp, indent=2)
+  for log_name in ("rip/logs/rip_train.jsonl", "cil/logs/cil_train.jsonl"):
+    src = os.path.join(out, log_name)
+    if os.path.exists(src):
+      shutil.copy(src, os.path.join(results, os.path.basename(log_name)))
+  return tables
+
+
+def family_panel(tables: Mapping, out: str, suite: str, label: str):
+  """The per-family table of the first of RIP-WCM, DIM and the autopilot
+  that has a row and an ``OUT/<suite>_<policy>/summary.json`` (None when
+  that summary has no families, or no policy has both)."""
+  for name in ("rip_wcm", "dim", "autopilot"):
+    src = os.path.join(out, "{}_{}".format(suite, name), "summary.json")
+    if name in tables[suite] and os.path.exists(src):
+      fam = pipeline.read_summary(src).get("per_family")
+      if not fam:
+        return None
+      return render_families("{} ({})".format(
+          label.split(" ")[0], POLICY_LABELS.get(name, name)), fam)
+  return None
 
 
 def publish(out: Optional[str] = None, *,
@@ -137,19 +167,7 @@ def publish(out: Optional[str] = None, *,
   ``RESULTS.md``."""
   k = pipeline.knobs(out=out, horizon=horizon)
   results = os.path.join(k.out, "results")
-  os.makedirs(results, exist_ok=True)
-  tables = {}
-  for path in sorted(glob.glob(os.path.join(k.out, "tables*.json"))):
-    with open(path) as fp:
-      for suite, rows in json.load(fp).items():
-        tables.setdefault(suite, {}).update(rows)
-  with open(os.path.join(results, "tables.json"), "w") as fp:
-    json.dump(tables, fp, indent=2)
-
-  for log_name in ("rip/logs/rip_train.jsonl", "cil/logs/cil_train.jsonl"):
-    src = os.path.join(k.out, log_name)
-    if os.path.exists(src):
-      shutil.copy(src, os.path.join(results, os.path.basename(log_name)))
+  tables = merge_tables(k.out, results)
   for suite, _ in SUITES:
     for name in ORDER:
       src = os.path.join(k.out, "{}_{}".format(suite, name), "summary.json")

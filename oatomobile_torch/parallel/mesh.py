@@ -147,6 +147,14 @@ def batch_sharding(mesh: Mesh) -> Tuple:
   return (Shard(0), Replicate())
 
 
+def ensemble_sharding(mesh: Mesh) -> Tuple:
+  """The placements of stacked ensemble members (leading member axis):
+  replicated over ``dp``, sharded over ``mp``."""
+  del mesh
+  from torch.distributed.tensor import Replicate, Shard  # pylint: disable=import-outside-toplevel
+  return (Replicate(), Shard(0))
+
+
 def replicated(mesh: Mesh) -> Tuple:
   """The placements of a value replicated over the mesh."""
   del mesh

@@ -25,8 +25,6 @@ within two Adam steps (2 lr per step).
 """
 
 import os
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -193,25 +191,10 @@ def ranks(inputs, tmp_path_factory):
   """Every scenario on two gloo ranks; returns each rank's results and
   the directory the ranks wrote to."""
   out = str(tmp_path_factory.mktemp("ranks"))
-  path = os.path.join(out, "inputs.pt")
-  torch.save({k: v for k, v in inputs.items() if k != "dim_tree"}, path)
-  store = "file://" + os.path.join(out, "store")
-  env = dict(os.environ, OMP_NUM_THREADS="1")
-  procs = [subprocess.Popen(
-      [sys.executable, worker.__file__, str(r), str(WORLD), store, path, out],
-      env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-           for r in range(WORLD)]
-  logs = []
-  try:
-    for proc in procs:
-      logs.append(proc.communicate(timeout=JOIN_SECONDS)[0].decode())
-  finally:
-    for proc in procs:
-      proc.kill()
-  for proc, log in zip(procs, logs):
-    assert proc.returncode == 0, log[-4000:]
-  return [torch.load(os.path.join(out, "rank{}.pt".format(r)),
-                     weights_only=False) for r in range(WORLD)], out
+  worker.join(worker.start(
+      WORLD, {k: v for k, v in inputs.items() if k != "dim_tree"}, out),
+              JOIN_SECONDS)
+  return worker.results(out, WORLD), out
 
 
 def test_two_ranks_form_the_meshes(ranks):

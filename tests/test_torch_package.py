@@ -78,6 +78,11 @@ def test_import_and_rollout_without_jax():
       "from oatomobile_torch.experiments.diag import (busytown, "
       "busytown_viz, common, hero_stops, hills, hills_viz, "
       "learned_failures, stalls, town02)\n"
+      "from oatomobile_torch import entry\n"
+      "from oatomobile_torch.experiments import (post_round2, publish_r3, "
+      "publish_r4, round2, round3)\n"
+      "fn, example = entry.entry('cpu')\n"
+      "assert float(entry.capture(fn, example)(*example)) > 0\n"
       "tasks = {t: dict(_TASKS[t], num_vehicles=2) for t in "
       "('Town02_Turn0-v0', 'Town02_Straight0-v0')}\n"
       "out = evaluate_batched(tasks, horizon=2, device='cpu')\n"
@@ -97,6 +102,7 @@ def test_import_and_rollout_without_jax():
       "bad = [m for m, mod in list(sys.modules.items()) if "
       "(getattr(mod, '__file__', None) or '').startswith(scripts)]\n"
       "assert not bad, bad\n"
+      "assert '__graft_entry__' not in sys.modules\n"
       "print('clean')\n")
   env = dict(os.environ, PYTHONPATH=ROOT)
   proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -128,6 +134,9 @@ def test_rendering_modules_import_without_matplotlib():
       "from oatomobile_torch.experiments.diag import (busytown, "
       "busytown_viz, common, hero_stops, hills, hills_viz, "
       "learned_failures, stalls, town02)\n"
+      "from oatomobile_torch import entry\n"
+      "from oatomobile_torch.experiments import (post_round2, publish_r3, "
+      "publish_r4, round2, round3)\n"
       "bad = [m for m in sys.modules if m.split('.')[0] in "
       "('matplotlib', 'PIL', 'imageio', 'jax', 'oatomobile_tpu')]\n"
       "assert not bad, bad\n"
@@ -152,15 +161,20 @@ def test_sources_never_import_jax():
 
 
 def test_sources_never_import_scripts():
-  """The port copies what it needs from the JAX package's ``scripts/``:
-  no module of it imports one of them or puts them on the path."""
-  pattern = re.compile(r"^\s*(import|from)\s+scripts\b|['\"]scripts['\"]",
-                       re.M)
+  """The port copies what it needs from the JAX package's ``scripts/`` and
+  the repository's ``__graft_entry__.py``: no module of it (nor
+  ``chip_smoke.py``) imports one of them or puts them on the path."""
+  pattern = re.compile(
+      r"^\s*(import|from)\s+(scripts|__graft_entry__)\b"
+      r"|['\"](scripts|__graft_entry__(\.py)?)['\"]", re.M)
+  paths = [os.path.join(ROOT, "chip_smoke.py")]
   for folder, _, files in os.walk(PACKAGE):
-    for name in files:
-      if name.endswith(".py"):
-        with open(os.path.join(folder, name)) as fp:
-          assert not pattern.search(fp.read()), name
+    paths += [os.path.join(folder, name) for name in files
+              if name.endswith(".py")]
+  assert os.path.join(PACKAGE, "entry.py") in paths
+  for path in paths:
+    with open(path) as fp:
+      assert not pattern.search(fp.read()), path
 
 
 def test_entry_points_default_to_cuda(tmp_path):

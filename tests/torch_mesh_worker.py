@@ -1,19 +1,23 @@
-"""One rank of the port's two-rank mesh scenarios on the CPU (gloo).
+"""One rank of the port's mesh scenarios on the CPU (gloo).
 
-    python tests/torch_mesh_worker.py RANK WORLD STORE INPUTS OUT
+    python tests/torch_mesh_worker.py RANK WORLD STORE INPUTS OUT [MODE]
 
 ``STORE`` is the ``file://`` rendezvous, ``INPUTS`` a ``torch.save`` of
 the scenarios' inputs (a pack directory, converted weights, batches, a
 key), ``OUT`` the directory where each rank writes ``rank{RANK}.pt``: the
-values every scenario returns on this rank.  The group's start and every
-collective time out after ``TIMEOUT`` seconds, so that a hang fails
-instead of waiting.  Imports torch and the port only (no jax);
-``tests/test_torch_mesh.py`` starts the ranks and holds what they return
+values every scenario returns on this rank.  ``MODE`` is ``scenarios``
+(the default: the two-rank scenarios of ``tests/test_torch_mesh.py``) or
+``dryrun`` (``oatomobile_torch.entry.dryrun`` with the inputs'
+``init_states``, for ``tests/test_torch_entry.py``).  The group's start
+and every collective time out after ``TIMEOUT`` seconds, so that a hang
+fails instead of waiting.  Imports torch and the port only (no jax);
+``spawn`` starts the ranks for the tests, which hold what they return
 against the single process and the JAX package.
 """
 
 import datetime
 import os
+import subprocess
 import sys
 
 import torch
@@ -108,34 +112,81 @@ def dim_update(mesh, inputs):
                          model.state_dict().items()}}
 
 
+def start(world: int, inputs: dict, out: str,
+          mode: str = "scenarios") -> list:
+  """Starts ``world`` ranks of ``mode`` on ``inputs`` (saved into
+  ``out``), each with one thread; returns their processes."""
+  path = os.path.join(out, "inputs.pt")
+  torch.save(inputs, path)
+  store = "file://" + os.path.join(out, "store")
+  env = dict(os.environ, OMP_NUM_THREADS="1")
+  return [subprocess.Popen(
+      [sys.executable, __file__, str(r), str(world), store, path, out, mode],
+      env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+          for r in range(world)]
+
+
+def join(procs: list, join_seconds: float) -> list:
+  """Waits for ``start``'s ranks under one timeout of ``join_seconds`` (a
+  hung rank fails) and asserts that every rank exited 0; returns each
+  rank's output."""
+  logs = []
+  try:
+    for proc in procs:
+      logs.append(proc.communicate(timeout=join_seconds)[0].decode())
+  finally:
+    for proc in procs:
+      proc.kill()
+  for proc, log in zip(procs, logs):
+    assert proc.returncode == 0, log[-4000:]
+  return logs
+
+
+def results(out: str, world: int) -> list:
+  """What each rank of a finished ``spawn`` saved, in rank order."""
+  return [torch.load(os.path.join(out, "rank{}.pt".format(r)),
+                     weights_only=False) for r in range(world)]
+
+
+def scenarios(inputs, out) -> dict:
+  """Every two-rank scenario of ``tests/test_torch_mesh.py``."""
+  found = {}
+  mesh = mesh_lib.make_mesh(device="cpu")
+  found["mesh"] = (mesh.shape, mesh.rank, mesh.coordinate("dp"))
+  found["toy"] = toy_run(mesh, inputs["toy_batch"])
+  found["toy_accum"] = toy_run(mesh, inputs["toy_batch"], grad_accum=2)
+  found["env"] = env_run(mesh)
+  found["dim_update"] = dim_update(mesh, inputs)
+  pack = inputs["pack"]
+  found["dim_train"] = tdim.train(
+      pack, os.path.join(out, "dim"), use_mesh=True, plot_every=0,
+      input_size=inputs["input_size"], **TRAIN).model.state_dict()
+  found["cil_train"] = tcil.train(
+      pack, os.path.join(out, "cil"), use_mesh=True,
+      **TRAIN).model.state_dict()
+  rip_mesh = mesh_lib.ensemble_mesh(4, device="cpu")
+  found["rip_mesh"] = (rip_mesh.shape, rip_mesh.coordinate("mp"))
+  found["rip_train"] = trip.stack_params(trip.train(
+      pack, os.path.join(out, "rip"), num_models=4, use_mesh=True,
+      save_model_frequency=1, **TRAIN))
+  return found
+
+
 def main() -> None:
   rank, world = int(sys.argv[1]), int(sys.argv[2])
   store, inputs_path, out = sys.argv[3:6]
+  mode = sys.argv[6] if len(sys.argv) > 6 else "scenarios"
   torch.set_num_threads(1)
   dist.init_process_group("gloo", init_method=store, rank=rank,
                           world_size=world,
                           timeout=datetime.timedelta(seconds=TIMEOUT))
   inputs = torch.load(inputs_path, weights_only=False)
-  results = {}
-  mesh = mesh_lib.make_mesh(device="cpu")
-  results["mesh"] = (mesh.shape, mesh.rank, mesh.coordinate("dp"))
-  results["toy"] = toy_run(mesh, inputs["toy_batch"])
-  results["toy_accum"] = toy_run(mesh, inputs["toy_batch"], grad_accum=2)
-  results["env"] = env_run(mesh)
-  results["dim_update"] = dim_update(mesh, inputs)
-  pack = inputs["pack"]
-  results["dim_train"] = tdim.train(
-      pack, os.path.join(out, "dim"), use_mesh=True, plot_every=0,
-      input_size=inputs["input_size"], **TRAIN).model.state_dict()
-  results["cil_train"] = tcil.train(
-      pack, os.path.join(out, "cil"), use_mesh=True,
-      **TRAIN).model.state_dict()
-  rip_mesh = mesh_lib.ensemble_mesh(4, device="cpu")
-  results["rip_mesh"] = (rip_mesh.shape, rip_mesh.coordinate("mp"))
-  results["rip_train"] = trip.stack_params(trip.train(
-      pack, os.path.join(out, "rip"), num_models=4, use_mesh=True,
-      save_model_frequency=1, **TRAIN))
-  torch.save(results, os.path.join(out, "rank{}.pt".format(rank)))
+  if mode == "dryrun":
+    from oatomobile_torch import entry  # pylint: disable=import-outside-toplevel
+    found = entry.dryrun(device="cpu", init_states=inputs.get("init_states"))
+  else:
+    found = scenarios(inputs, out)
+  torch.save(found, os.path.join(out, "rank{}.pt".format(rank)))
   dist.barrier()
   dist.destroy_process_group()
 
