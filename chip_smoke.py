@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``oatomobile_torch``).
 
-    python3 chip_smoke.py [--prev-splat PATH ...]
+    python3 chip_smoke.py [--prev-splat PATH ...] [--probe-rounds N]
 
 Needs one CUDA card and the CUDA toolkit (nvcc).  It:
 
@@ -50,7 +50,11 @@ Needs one CUDA card and the CUDA toolkit (nvcc).  It:
      steps, collisions, lane invasions and success equal, distance within
      1e-3 m) and with a K = 2 RIP-WCM ensemble at 2 plan steps for 10
      steps (steps, collisions and success equal, distance within 1e-2 m);
- 11. evaluates the whole CARNOVEL suite (27 tasks, configured traffic, one
+ 11. checks the route-graph cache on the host (``check_route_cache``: a
+     Town04 TownMap built at a freed Town02 one's address gets Town04's
+     graph, and each CARNOVEL town group's routes equal those planned over
+     a CSR built anew from its town), then
+     evaluates the whole CARNOVEL suite (27 tasks, configured traffic, one
      episode each) with ``evaluate_batched`` per town group (the scenes
      one call over the suite builds): with the autopilot over the full
      1500-step horizon, then with the RIP-WCM ensemble of K = 4
@@ -200,6 +204,10 @@ version on the main path's inputs, and timed in turn with this one (old,
 new, new, old) at the main path's final inputs; the first one's time is
 the kernels line's ``prev_ms``.
 
+``--probe-rounds N`` builds the kernel, then runs only phases 10 and 11
+above (the evaluator's check, the route check and the CARNOVEL runs) N
+times, each round on towns built anew, and stops without the last line.
+
 Any failure exits non-zero before the last line.  Without a CUDA device,
 or outside a checkout of the repository, it exits 1 and prints no result.
 """
@@ -235,6 +243,9 @@ DIM_DISTANCE_ATOL = 1e-2
 EVAL_CHECK_TASKS = ("Town02_Straight0-v0", "Town02_Turn0-v0")
 EVAL_CHECK_STEPS, EVAL_DISTANCE_ATOL = 30, 1e-3
 EVAL_RIP_CHECK_STEPS, EVAL_RIP_DISTANCE_ATOL = 10, 1e-2
+# The route-graph cache check: tries to land a TownMap on a freed one's
+# address (CPython's allocator hands the freed block back at once).
+REUSE_TRIES = 50
 # CARNOVEL through the batched evaluator: the autopilot over the suite's
 # 1500-step horizon; the K = 4 RIP ensemble over a horizon cut to 32 steps
 # for the time limit.
@@ -736,6 +747,114 @@ def drive_carnovel(name: str, policy, horizon: int, device="cuda") -> dict:
   if not any(r["distance"] > 0 for r in results.values()):
     fail("no hero moved in the CARNOVEL evaluation with the " + name)
   return launches
+
+
+def check_route_cache() -> None:
+  """Host-side check of the route-graph cache before the CARNOVEL run.
+
+  Forces the address reuse that once handed the native planner another
+  town's graph: a TownMap of Town02's arrays takes its graph and dies,
+  and one of Town04's arrays is built at the freed address (retried until
+  it lands there); ``graph_csr`` must give Town04's node count.  Then
+  each CARNOVEL town group's routes, as ``town_group_scenes`` plans them,
+  must equal routes planned over a CSR built anew from the town's arrays,
+  outside the cache.  Loads the towns first (phase 10 needs them) and
+  times the checks alone."""
+  import dataclasses  # pylint: disable=import-outside-toplevel
+  import numpy as np  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch import native  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.benchmarks.batched_eval import (ROUTE_CAPACITY,  # pylint: disable=import-outside-toplevel
+                                                        town_group_scenes)
+  from oatomobile_torch.benchmarks.carnovel.benchmark import _TASKS  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.maps import TownMap, graph_csr, load_town  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.maps.routing import build_graph_csr  # pylint: disable=import-outside-toplevel
+
+  groups = {}
+  for _, config in sorted(_TASKS.items()):
+    groups.setdefault(config["town"], []).append(config)
+  t0 = time.perf_counter()
+  towns = {name: load_town(name) for name in ("Town02", *groups)}
+  t_load = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  fields = {name: {f.name: getattr(towns[name], f.name)
+                   for f in dataclasses.fields(TownMap)}
+            for name in ("Town02", "Town04")}
+  for tries in range(1, REUSE_TRIES + 1):
+    old = TownMap(**fields["Town02"])
+    graph_csr(old)
+    address = id(old)
+    del old
+    town = TownMap(**fields["Town04"])
+    if id(town) == address:
+      break
+  else:
+    fail("no TownMap landed on a freed one's address in {} tries".format(
+        REUSE_TRIES))
+  nodes = len(graph_csr(town)[0]) - 1
+  del town
+  routes_equal = {}
+  for name, configs in groups.items():
+    _, states = town_group_scenes(name, configs, device="cpu")
+    S = towns[name].num_spawn_points
+    origins, dests = (
+        towns[name].spawn_wp[np.asarray([c[k] for c in configs]) % S]
+        for k in ("origin", "destination"))
+    want = native.plan_routes_native(*build_graph_csr(towns[name]), origins,
+                                     dests, ROUTE_CAPACITY)
+    if want is None:
+      fail("the native route planner did not build")
+    routes_equal[name] = (
+        np.array_equal(states.route.numpy(), want[0]) and
+        np.array_equal(states.route_len.numpy(), want[1]))
+  print("route check: Town04 at a freed Town02 address after {} tries: "
+        "graph_csr nodes={} (Town04 has {}); CARNOVEL routes equal a fresh "
+        "CSR's: {}; {:.3f}s (towns loaded in {:.3f}s)".format(
+            tries, nodes, towns["Town04"].num_waypoints,
+            ", ".join("{} {}".format(n, e) for n, e in routes_equal.items()),
+            time.perf_counter() - t0, t_load))
+  if nodes != towns["Town04"].num_waypoints:
+    fail("graph_csr gave a graph of {} nodes for Town04".format(nodes))
+  if not all(routes_equal.values()):
+    fail("a CARNOVEL town group's routes are not its own graph's")
+
+
+def run_carnovel() -> dict:
+  """The route check, then the CARNOVEL suite with the autopilot
+  over 1500 steps and with the K = RIP_MEMBERS RIP-WCM ensemble over
+  CARNOVEL_RIP_HORIZON steps.  Returns the splat's launches per town
+  group of the RIP run (one a step)."""
+  from oatomobile_torch.baselines.learned.rip.policy import make_rip_policy  # pylint: disable=import-outside-toplevel
+  check_route_cache()
+  drive_carnovel("autopilot", None, CARNOVEL_AUTOPILOT_HORIZON)
+  print("carnovel rip-wcm: horizon cut to {} steps of the suite's 1500 for "
+        "the time limit".format(CARNOVEL_RIP_HORIZON))
+  rip_launches = drive_carnovel(
+      "rip-wcm K={} published widths, 10 plan steps".format(RIP_MEMBERS),
+      make_rip_policy(rip_ensemble(), algorithm="WCM"),
+      CARNOVEL_RIP_HORIZON)
+  if any(n != CARNOVEL_RIP_HORIZON for n in rip_launches.values()):
+    fail("bev_splat launched {} times per town group in {} RIP steps".format(
+        rip_launches, CARNOVEL_RIP_HORIZON))
+  return rip_launches
+
+
+def probe_carnovel(rounds: int) -> None:
+  """``--probe-rounds``: the evaluator's check, the route check and the
+  CARNOVEL runs ``rounds`` times in one process.
+  Each round first drops the towns, from ``load_town``'s cache and from
+  the disk, so every round builds Town02-Town04 anew: the intermediate
+  towns of ``maps.towns._build`` die as they did when a run's first
+  CARNOVEL phase built them."""
+  import shutil  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.maps import towns  # pylint: disable=import-outside-toplevel
+  for r in range(rounds):
+    t0 = time.perf_counter()
+    towns.load_town.cache_clear()
+    shutil.rmtree(towns._CACHE_DIR, ignore_errors=True)  # pylint: disable=protected-access
+    check_eval_card_against_cpu()
+    run_carnovel()
+    print("probe round {} of {}: {:.1f}s".format(
+        r + 1, rounds, time.perf_counter() - t0), flush=True)
 
 
 def rip_ensemble(device="cuda"):
@@ -2488,6 +2607,9 @@ def main() -> None:
   parser.add_argument("--prev-splat", action="append", default=[],
                       help="another design's bev_splat.cu to check and time "
                       "beside this one")
+  parser.add_argument("--probe-rounds", type=int, default=0,
+                      help="run only the evaluator check and CARNOVEL this "
+                      "many times, each round on towns built anew, and stop")
   args = parser.parse_args()
   try:
     import torch  # pylint: disable=import-outside-toplevel
@@ -2529,6 +2651,12 @@ def main() -> None:
     print("build: {} from {} (nvcc {:.1f}s)".format(name, source,
                                                    bev_cuda.build_seconds))
     print_build(name, bev_cuda, library)
+  if args.probe_rounds:
+    probe_carnovel(args.probe_rounds)
+    print("probe: {} rounds of the evaluator check, the route check and "
+          "CARNOVEL passed in {:.1f}s".format(
+        args.probe_rounds, time.perf_counter() - t_start))
+    return
 
   # -- 2. Kernel against its plain version on the card -----------------------
   max_abs_err = 0.0
@@ -2677,17 +2805,7 @@ def main() -> None:
   check_eval_card_against_cpu()
 
   # -- 10. CARNOVEL through the batched evaluator ------------------------------
-  from oatomobile_torch.baselines.learned.rip.policy import make_rip_policy  # pylint: disable=import-outside-toplevel
-  drive_carnovel("autopilot", None, CARNOVEL_AUTOPILOT_HORIZON)
-  print("carnovel rip-wcm: horizon cut to {} steps of the suite's 1500 for "
-        "the time limit".format(CARNOVEL_RIP_HORIZON))
-  rip_launches = drive_carnovel(
-      "rip-wcm K={} published widths, 10 plan steps".format(RIP_MEMBERS),
-      make_rip_policy(rip_ensemble(), algorithm="WCM"),
-      CARNOVEL_RIP_HORIZON)
-  if any(n != CARNOVEL_RIP_HORIZON for n in rip_launches.values()):
-    fail("bev_splat launched {} times per town group in {} RIP steps".format(
-        rip_launches, CARNOVEL_RIP_HORIZON))
+  rip_launches = run_carnovel()
 
   lap("evaluator check and CARNOVEL")
 

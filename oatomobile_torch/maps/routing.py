@@ -9,6 +9,7 @@ on the host and shipped to the device as a fixed-capacity index array —
 route *following* is then pure gathers inside the compiled step.
 """
 
+import weakref
 from collections import deque
 from typing import Optional, Tuple
 
@@ -16,20 +17,30 @@ import numpy as np
 
 from oatomobile_torch.maps.assets import TownMap
 
+# id(town) -> (indptr, indices).  TownMap is unhashable (a dataclass with
+# eq=True), so the key is its id; a finalizer drops the entry when the
+# town dies, before CPython can hand its address to another town.
 _CSR_CACHE = {}
 
 
+def build_graph_csr(town: TownMap) -> Tuple[np.ndarray, np.ndarray]:
+  """CSR (indptr, indices) of the waypoint successor graph, built anew."""
+  counts = town.wp_num_next.astype(np.int64)
+  indptr = np.zeros(town.num_waypoints + 1, dtype=np.int32)
+  np.cumsum(counts, out=indptr[1:])
+  indices = np.empty(int(indptr[-1]), dtype=np.int32)
+  for u in range(town.num_waypoints):
+    indices[indptr[u]:indptr[u + 1]] = town.wp_next[u, :counts[u]]
+  return indptr, indices
+
+
 def graph_csr(town: TownMap) -> Tuple[np.ndarray, np.ndarray]:
-  """CSR (indptr, indices) view of the waypoint successor graph."""
+  """CSR (indptr, indices) view of the waypoint successor graph, cached
+  for as long as ``town`` lives."""
   key = id(town)
   if key not in _CSR_CACHE:
-    counts = town.wp_num_next.astype(np.int64)
-    indptr = np.zeros(town.num_waypoints + 1, dtype=np.int32)
-    np.cumsum(counts, out=indptr[1:])
-    indices = np.empty(int(indptr[-1]), dtype=np.int32)
-    for u in range(town.num_waypoints):
-      indices[indptr[u]:indptr[u + 1]] = town.wp_next[u, :counts[u]]
-    _CSR_CACHE[key] = (indptr, indices)
+    _CSR_CACHE[key] = build_graph_csr(town)
+    weakref.finalize(town, _CSR_CACHE.pop, key, None)
   return _CSR_CACHE[key]
 
 
@@ -40,9 +51,20 @@ def plan_route_batch(town: TownMap, origin_wps: np.ndarray,
   (oatomobile_torch/native), Python BFS otherwise.
 
   Returns (routes [Q, capacity] i32 saturating-padded, lengths [Q] i32).
+  Raises ValueError when the graph is not ``town``'s or a waypoint id is
+  not one of its waypoints.
   """
   from oatomobile_torch import native
+  W = town.num_waypoints
   indptr, indices = graph_csr(town)
+  if len(indptr) - 1 != W:
+    raise ValueError("route graph of {} nodes for {} with {} waypoints"
+                     .format(len(indptr) - 1, town.name, W))
+  for what, wps in (("origin", origin_wps), ("destination", dest_wps)):
+    wps = np.asarray(wps)
+    if wps.size and (wps.min() < 0 or wps.max() >= W):
+      raise ValueError("{} waypoint outside [0, {}) in {}".format(
+          what, W, town.name))
   result = native.plan_routes_native(indptr, indices,
                                      np.asarray(origin_wps, np.int32),
                                      np.asarray(dest_wps, np.int32),

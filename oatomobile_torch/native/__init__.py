@@ -59,6 +59,7 @@ def get_library() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_int32),  # indptr
         ctypes.POINTER(ctypes.c_int32),  # indices
         ctypes.c_int32,                  # num_nodes
+        ctypes.c_int32,                  # num_indices
         ctypes.POINTER(ctypes.c_int32),  # origins
         ctypes.POINTER(ctypes.c_int32),  # dests
         ctypes.c_int32,                  # num_queries
@@ -66,7 +67,7 @@ def get_library() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_int32),  # routes_out
         ctypes.POINTER(ctypes.c_int32),  # lengths_out
     ]
-    lib.plan_routes.restype = None
+    lib.plan_routes.restype = ctypes.c_int32
     _lib = lib
   except Exception as exc:  # pylint: disable=broad-except
     logger.warning("native route planner unavailable (%s); "
@@ -79,11 +80,22 @@ def _ptr(arr: np.ndarray):
   return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
 
 
+# plan_routes' return codes (route_planner.cc), but 0.
+_ERRORS = {
+    1: "route capacity below 1",
+    2: "indptr is not monotone from 0 to the number of indices",
+    3: "a successor index outside the graph's nodes",
+    4: "an origin or destination outside the graph's nodes",
+}
+
+
 def plan_routes_native(indptr: np.ndarray, indices: np.ndarray,
                        origins: np.ndarray, dests: np.ndarray,
                        capacity: int):
   """Batched route planning; returns (routes [Q, capacity] i32,
-  lengths [Q] i32) or None when the native library is unavailable."""
+  lengths [Q] i32) or None when the native library is unavailable.
+  Raises ValueError on a malformed graph or an out-of-range query (the
+  library checks its inputs before it plans)."""
   lib = get_library()
   if lib is None:
     return None
@@ -91,11 +103,20 @@ def plan_routes_native(indptr: np.ndarray, indices: np.ndarray,
   indices = np.ascontiguousarray(indices, dtype=np.int32)
   origins = np.ascontiguousarray(origins, dtype=np.int32)
   dests = np.ascontiguousarray(dests, dtype=np.int32)
+  if (indptr.ndim != 1 or len(indptr) < 1 or indices.ndim != 1 or
+      origins.ndim != 1 or origins.shape != dests.shape):
+    raise ValueError("plan_routes_native: indptr [N + 1], indices [E] and "
+                     "origins and dests of one shape [Q]; got {}, {}, {}, "
+                     "{}".format(indptr.shape, indices.shape, origins.shape,
+                                 dests.shape))
   num_nodes = len(indptr) - 1
   num_queries = len(origins)
   routes = np.empty((num_queries, capacity), dtype=np.int32)
   lengths = np.empty((num_queries,), dtype=np.int32)
-  lib.plan_routes(_ptr(indptr), _ptr(indices), num_nodes, _ptr(origins),
-                  _ptr(dests), num_queries, capacity, _ptr(routes),
-                  _ptr(lengths))
+  code = lib.plan_routes(_ptr(indptr), _ptr(indices), num_nodes,
+                         len(indices), _ptr(origins), _ptr(dests),
+                         num_queries, capacity, _ptr(routes), _ptr(lengths))
+  if code:
+    raise ValueError("plan_routes_native: {} (graph of {} nodes)".format(
+        _ERRORS.get(code, "error {}".format(code)), num_nodes))
   return routes, lengths

@@ -18,16 +18,48 @@
 
 extern "C" {
 
+// Return codes of plan_routes.
+enum {
+  kOk = 0,
+  kBadCapacity = 1,  // capacity < 1
+  kBadGraph = 2,     // indptr not monotone from 0 to num_indices
+  kBadIndex = 3,     // a successor outside [0, num_nodes)
+  kBadQuery = 4,     // an origin or destination outside [0, num_nodes)
+};
+
 // Plans `num_queries` routes.  For query q: BFS from origins[q] to
 // dests[q]; writes up to `capacity` waypoint ids into
 // routes_out[q*capacity ...], padding the tail with the final reached
 // waypoint (saturating semantics expected by the device-side follower),
 // and the true length into lengths_out[q].  Unreachable destinations
 // produce a length-1 route at the origin.
-void plan_routes(const int32_t* indptr, const int32_t* indices,
-                 int32_t num_nodes, const int32_t* origins,
-                 const int32_t* dests, int32_t num_queries, int32_t capacity,
-                 int32_t* routes_out, int32_t* lengths_out) {
+//
+// The graph and the queries are checked before any route is planned: on
+// a bad input it returns one of the codes above and writes nothing, so a
+// graph that is not the queries' town never indexes past its arrays.
+int32_t plan_routes(const int32_t* indptr, const int32_t* indices,
+                    int32_t num_nodes, int32_t num_indices,
+                    const int32_t* origins, const int32_t* dests,
+                    int32_t num_queries, int32_t capacity,
+                    int32_t* routes_out, int32_t* lengths_out) {
+  if (capacity < 1) return kBadCapacity;
+  if (num_nodes < 0 || num_indices < 0 || indptr[0] != 0 ||
+      indptr[num_nodes] != num_indices) {
+    return kBadGraph;
+  }
+  for (int32_t u = 0; u < num_nodes; ++u) {
+    if (indptr[u + 1] < indptr[u]) return kBadGraph;
+  }
+  for (int32_t e = 0; e < num_indices; ++e) {
+    if (indices[e] < 0 || indices[e] >= num_nodes) return kBadIndex;
+  }
+  for (int32_t q = 0; q < num_queries; ++q) {
+    if (origins[q] < 0 || origins[q] >= num_nodes || dests[q] < 0 ||
+        dests[q] >= num_nodes) {
+      return kBadQuery;
+    }
+  }
+
   std::vector<int32_t> parent(num_nodes);
   std::vector<int32_t> stamp(num_nodes, -1);
   std::vector<int32_t> queue(num_nodes);
@@ -88,36 +120,7 @@ void plan_routes(const int32_t* indptr, const int32_t* indices,
     const int32_t pad = route[length - 1];
     for (int32_t i = length; i < capacity; ++i) route[i] = pad;
   }
-}
-
-// All-pairs-from-sources next-hop table: for each source s, BFS the
-// reverse graph from dests and record, per node, the first hop towards
-// the destination.  Utility for future on-device dynamic re-routing.
-void next_hops_to_dest(const int32_t* indptr, const int32_t* indices,
-                       int32_t num_nodes, int32_t dest,
-                       int32_t* next_hop_out) {
-  // next_hop_out[u] = successor of u on a shortest path to dest (or u).
-  // Computed by BFS from `dest` over the REVERSE graph; requires reverse
-  // CSR, which callers build by transposing — here we do a forward
-  // relaxation instead: repeated sweeps (graph diameter bounded by the
-  // longest lane loop).  Simple and called rarely.
-  std::vector<int32_t> dist(num_nodes, INT32_MAX);
-  dist[dest] = 0;
-  for (int32_t u = 0; u < num_nodes; ++u) next_hop_out[u] = u;
-  bool changed = true;
-  while (changed) {
-    changed = false;
-    for (int32_t u = 0; u < num_nodes; ++u) {
-      for (int32_t e = indptr[u]; e < indptr[u + 1]; ++e) {
-        const int32_t v = indices[e];
-        if (dist[v] != INT32_MAX && dist[v] + 1 < dist[u]) {
-          dist[u] = dist[v] + 1;
-          next_hop_out[u] = v;
-          changed = true;
-        }
-      }
-    }
-  }
+  return kOk;
 }
 
 }  // extern "C"
