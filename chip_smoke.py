@@ -17,7 +17,12 @@ Needs one CUDA card and the CUDA toolkit (nvcc).  It:
   4. captures one splat in a CUDA graph, replays it on new inputs copied
      into the captured buffers and holds the result against the eager call;
   5. runs a small rollout on the card and on the CPU and holds the episode
-     stats against each other;
+     stats against each other; then the closed-loop ``sim.rollout(...,
+     policy=)`` with the autopilot at CLOSED_LOOP_TARGET_SPEED under a
+     CLOSED_LOOP_LIMIT speed limit on every waypoint (Town02,
+     CLOSED_LOOP_SCENES scenes, CLOSED_LOOP_STEPS steps) on each: every
+     step's integer and flag fields equal, the hero's position within
+     CLOSED_LOOP_XY_ATOL (no splat: the world model synthesises no LIDAR);
   6. drives the main path: ``BatchedEnv("Town01", 1024, num_vehicles=16,
      route_capacity=1024, seed=0).rollout(256, compute=("lidar",))`` once
      to warm up (two eager steps, then the step's capture into a CUDA
@@ -375,6 +380,15 @@ DRYRUN = dict(scenes=2, mesh=(1, 1), windows=6, batch=6,
               ensemble=2)
 DRYRUN_STEPS = 115
 
+# The closed-loop rollout on the card against the CPU: the autopilot at
+# 40 km/h under a 50 km/h limit (Town02's own limits are 30 km/h, where
+# target_speed changes nothing), every step's integer and flag fields
+# equal and the hero's position within 1e-3 m, as phase 5's rollout holds
+# its distance.
+CLOSED_LOOP_SCENES, CLOSED_LOOP_STEPS, CLOSED_LOOP_VEHICLES = 4, 32, 8
+CLOSED_LOOP_TARGET_SPEED, CLOSED_LOOP_LIMIT = 40.0 / 3.6, 50.0 / 3.6
+CLOSED_LOOP_XY_ATOL = 1e-3
+
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bandwidth and
 # FP32 rate outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
@@ -485,6 +499,59 @@ def count_differing(out, ref) -> int:
   """Pixels of [B, 200, 200, 2] images where either channel differs (NaN
   differs from everything)."""
   return int((out != ref).any(-1).sum())
+
+
+def check_closed_loop() -> None:
+  """``sim.rollout(policy=)`` with the autopilot at a raised target speed,
+  on the card against the CPU."""
+  import torch  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch import sim  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.maps import load_town  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.sim.types import scene_state_to_numpy  # pylint: disable=import-outside-toplevel
+
+  def flat(tree, prefix=""):
+    out = {}
+    for key, value in tree.items():
+      if isinstance(value, dict):
+        out.update(flat(value, prefix + key + "."))
+      else:
+        out[prefix + key] = value
+    return out
+
+  def policy(params, state):
+    return sim.autopilot_policy(params, state,
+                                target_speed=CLOSED_LOOP_TARGET_SPEED)
+
+  t0 = time.perf_counter()
+  town = load_town("Town02")
+  trajs = {}
+  for device in ("cpu", "cuda"):
+    params = sim.make_params(town, device=device)
+    limit = torch.full_like(params.map["wp_speed_limit"], CLOSED_LOOP_LIMIT)
+    params = params.replace(map={**params.map, "wp_speed_limit": limit})
+    state = sim.init_scene_batch(town, CLOSED_LOOP_SCENES,
+                                 num_vehicles=CLOSED_LOOP_VEHICLES, seed=7,
+                                 device=device)
+    actions = torch.zeros(CLOSED_LOOP_STEPS, CLOSED_LOOP_SCENES, 3,
+                          device=device)
+    _, traj = sim.rollout(params, state, actions, policy=policy)
+    trajs[device] = flat(scene_state_to_numpy(traj))
+  cpu, card = trajs["cpu"], trajs["cuda"]
+  discrete = [k for k, v in cpu.items() if v.dtype.kind != "f"]
+  equal = all((cpu[k] == card[k]).all() for k in discrete)
+  xy_err = float(abs(cpu["hero_xy"] - card["hero_xy"]).max())
+  speed = float(card["hero_speed"][-1].mean())
+  print("check closed loop cuda vs cpu (Town02, {} scenes, {} NPCs, {} "
+        "steps, sim.rollout(policy=autopilot at {:.0f} km/h) under a {:.0f} "
+        "km/h limit): discrete fields equal={} ({} fields) "
+        "hero_xy_max_abs_diff={} "
+        "(limit {}) final hero speed mean {:.2f} m/s; {:.2f}s".format(
+            CLOSED_LOOP_SCENES, CLOSED_LOOP_VEHICLES, CLOSED_LOOP_STEPS,
+            CLOSED_LOOP_TARGET_SPEED * 3.6, CLOSED_LOOP_LIMIT * 3.6, equal,
+            len(discrete), xy_err, CLOSED_LOOP_XY_ATOL, speed,
+            time.perf_counter() - t0))
+  if not equal or not xy_err <= CLOSED_LOOP_XY_ATOL:
+    fail("the closed-loop rollout on the card disagrees with the CPU")
 
 
 def check_dim_card_against_cpu() -> None:
@@ -2728,6 +2795,7 @@ def main() -> None:
         "checksum_max_rel_diff={}".format(same, dist_err, sum_err))
   if not same or dist_err > 1e-3 or sum_err > 1e-3:
     fail("the rollout on the card disagrees with the rollout on the CPU")
+  check_closed_loop()
 
   # -- 5. Main path ------------------------------------------------------------
   env = BatchedEnv(TOWN, BATCH, num_vehicles=VEHICLES, route_capacity=1024,

@@ -16,6 +16,7 @@ import torch
 import oatomobile_torch
 from oatomobile_torch.sim.autopilot import autopilot_policy
 from oatomobile_torch.sim.types import copy_state_
+from oatomobile_torch.simulators.cuda import defaults
 from oatomobile_torch.simulators.cuda.simulator import CARLAAction
 
 
@@ -30,7 +31,7 @@ class AutopilotAgent(oatomobile_torch.Agent):
                noise: float = 0.1) -> None:
     """Args mirror the reference's; ``noise`` is the probability of a
     uniformly random action.  The expert's target speed is the reference's
-    20 km/h (``defaults.TARGET_SPEED``), the port's autopilot default."""
+    ``defaults.TARGET_SPEED`` (20 km/h)."""
     super().__init__(environment=environment)
     self._sim = self._environment.unwrapped.simulator
     self._noise = noise
@@ -47,8 +48,9 @@ class AutopilotAgent(oatomobile_torch.Agent):
 
   def _policy(self, state):
     """The action [1, 3]; the PID, patience and key written back."""
-    action, new_state = autopilot_policy(self._params, state,
-                                         noise=self._noise)
+    action, new_state = autopilot_policy(
+        self._params, state, noise=self._noise,
+        target_speed=defaults.TARGET_SPEED / 3.6)
     copy_state_(state, new_state)
     return action
 

@@ -2,11 +2,11 @@
 the JAX package's ``ops/transforms.py``.
 
 ``world2local``, ``local2world``, ``rot2mat``, the planar
-``world2local_2d`` / ``local2world_2d`` and ``yaw_to_forward`` take numpy
-arrays or torch tensors: given a tensor they compute in torch on its
-device (the counterpart of the JAX functions with ``xp=jnp``), otherwise
-in numpy (with ``xp=np``).  ``np_world2local`` and ``np_local2world`` are the host-side
-float64 twins.
+``world2local_2d`` / ``local2world_2d``, ``yaw_to_forward`` and
+``wrap_angle`` take numpy arrays or torch tensors: given a tensor they
+compute in torch on its device (the counterpart of the JAX functions with
+``xp=jnp``), otherwise in numpy (with ``xp=np``).  ``np_world2local`` and
+``np_local2world`` are the host-side float64 twins.
 
 Rotations are CARLA ``(pitch, yaw, roll)`` triplets in *degrees*;
 ``rot2mat(rotation) = euler2mat(roll, pitch, yaw).T`` in the static-xyz
@@ -125,6 +125,13 @@ def local2world_2d(*, current_xy, current_yaw_rad, local_xy):
   x = c[..., None] * local_xy[..., 0] - s[..., None] * local_xy[..., 1]
   y = s[..., None] * local_xy[..., 0] + c[..., None] * local_xy[..., 1]
   return _stack([x, y], -1) + current_xy[..., None, :]
+
+
+def wrap_angle(theta):
+  """Radians wrapped to (-pi, pi]: ``arctan2(sin theta, cos theta)``."""
+  if _is_torch(theta):
+    return torch.atan2(torch.sin(theta), torch.cos(theta))
+  return np.arctan2(np.sin(theta), np.cos(theta))
 
 
 def np_world2local(*, current_location, current_rotation, world_locations):

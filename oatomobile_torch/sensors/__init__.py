@@ -1,1 +1,6 @@
-"""On-device observation synthesis."""
+"""On-device observation synthesis: state readouts, BEV, cameras, game
+state."""
+
+from oatomobile_torch.sensors import cameras, synth
+
+__all__ = ["cameras", "synth"]

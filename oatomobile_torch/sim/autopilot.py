@@ -169,8 +169,12 @@ def autopilot_policy(
     state: SceneState,
     *,
     noise: float = 0.0,
+    target_speed: float = TARGET_SPEED_MPS,
 ) -> Tuple[torch.Tensor, SceneState]:
-  """Returns (action [B, 3], state with updated PID, patience + RNG)."""
+  """Returns (action [B, 3], state with updated PID, patience + RNG).
+
+  ``target_speed`` (m/s, a Python number) raises the cruise base above
+  30 km/h; the waypoint's speed limit still caps it."""
   keys = rng_lib.split(state.rng, 3)
   rng, rng_noise, rng_action = keys[:, 0], keys[:, 1], keys[:, 2]
   is_junction = params.map["wp_is_junction"]
@@ -221,8 +225,8 @@ def autopilot_policy(
       is_junction[hero_wp]
   fast = (~ahead_junction & (far_bend < 0.15) & ~near_ahead & ~conflict)
   # Cruise: 30 km/h base, 35 km/h on clear straight junction-free road.
-  cruise_base = float(max(np.float32(TARGET_SPEED_MPS),
-                              np.float32(30.0 / 3.6)))
+  cruise_base = float(max(np.float32(target_speed),
+                          np.float32(30.0 / 3.6)))
   cruise = torch.where(fast, float(np.float32(35.0 / 3.6)), cruise_base)
   speed_cmd = torch.minimum(
       cruise, params.map["wp_speed_limit"][hero_wp]) * slow

@@ -218,17 +218,18 @@ def init_scene(
     num_vehicles: int = 0,
     num_pedestrians: int = 0,
     route_capacity: int = DEFAULT_ROUTE_CAPACITY,
+    rng: Optional[np.random.RandomState] = None,
     jax_seed: int = 0,
     device="cuda",
 ) -> SceneState:
   """Initial state of ONE scene, as a batch of one (host-side numpy).
 
-  Draws exactly what the JAX package's ``init_scene`` draws from
-  ``np.random.RandomState(jax_seed)``, and keys the scene with
-  ``PRNGKey(jax_seed)``.
+  Draws exactly what the JAX package's ``init_scene`` draws from ``rng``
+  (``np.random.RandomState(jax_seed)`` when None), and keys the scene
+  with ``PRNGKey(jax_seed)``.
   """
   device = device_lib.resolve(device)
-  rng = np.random.RandomState(jax_seed)
+  rng = rng or np.random.RandomState(jax_seed)
 
   sp = int(rng.randint(town.num_spawn_points)
            if spawn_point is None else spawn_point)
@@ -382,18 +383,31 @@ def batched_world_step(params: WorldParams, states: SceneState,
   return world_step(params, states, actions)
 
 
-def rollout(params: WorldParams, state: SceneState,
-            actions: torch.Tensor) -> Tuple[SceneState, SceneState]:
+def rollout(params: WorldParams, state: SceneState, actions: torch.Tensor,
+            policy=None) -> Tuple[SceneState, SceneState]:
   """The step over time: a Python loop in place of ``lax.scan``.
 
   Args:
-    actions: [T, B, 3] open-loop actions.
+    actions: [T, B, 3] open-loop actions.  With a ``policy`` only their
+      length counts: it sets the horizon T, as the JAX ``scan`` over them
+      does.
+    policy: None, or ``policy(params, state) -> (action [B, 3], state)``
+      called before each step for a closed-loop rollout; the state it
+      returns (PID, patience, key) is the one stepped.
 
   Returns:
     (final_state, per-step states stacked on a leading [T] axis).
+
+  Raises:
+    ValueError: if ``actions`` is None (the JAX ``scan`` has nothing to
+      scan over then, policy or not).
   """
+  if actions is None:
+    raise ValueError("rollout needs actions: their length is the horizon")
   traj = []
   for action_t in actions:
+    if policy is not None:
+      action_t, state = policy(params, state)
     state = world_step(params, state, action_t)
     traj.append(state)
   return state, map_state(lambda *xs: torch.stack(xs, dim=0), *traj)
