@@ -675,6 +675,7 @@ def drive_dim_path() -> int:
   from oatomobile_torch.envs.batched import BatchedEnv  # pylint: disable=import-outside-toplevel
   from oatomobile_torch.ops import bev_cuda  # pylint: disable=import-outside-toplevel
   from oatomobile_torch import graphs  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.utils import profiling  # pylint: disable=import-outside-toplevel
   env = BatchedEnv(TOWN, BATCH, num_vehicles=VEHICLES, route_capacity=1024,
                    seed=0, device="cuda")
   policy = bench.dim_policy(100, "float32", device="cuda")
@@ -687,6 +688,7 @@ def drive_dim_path() -> int:
         "graph's pool (memory_reserved after the capture less before)".format(
             graphs.capture_seconds, graphs.capture_bytes))
   bev_cuda.launches = 0
+  profiling.reset()
   t0 = time.perf_counter()
   _, _, s = env.rollout(DIM_STEPS, policy=policy)
   float(s["distance"].sum())  # the fetch waits for the device
@@ -708,10 +710,12 @@ def drive_dim_path() -> int:
                                                               DIM_STEPS))
   if not finite or not bool((s["distance"] > 0).any()):
     fail("DIM path stats are not finite or no scene moved")
-  stages = bench.policy_stage_ms(policy, env.params, env.state)
-  print("dim policy call B={} (CUDA events, mean of 5): {}".format(
-      BATCH, ", ".join("{} {:.3f} ms".format(k, v)
-                       for k, v in stages.items())))
+  stages = {k: v for k, v in bench.mark_medians(profiling.snapshot()).items()
+            if k.startswith("dim.")}
+  print("dim policy stages B={} (device marks of the timed rollout's last "
+        "replayed step): {}".format(
+            BATCH, ", ".join("{} {:.3f} ms".format(k, v)
+                             for k, v in stages.items())))
   return launches
 
 

@@ -4,7 +4,9 @@
 Each step: BEV synthesis (one splat kernel launch), the MobileNetV2
 context encoder, ``num_plan_steps`` Adam steps of the flow planner, and
 the plan -> control bridge.  The policy is a ``BatchedEnv.rollout``
-policy; its four stages are methods so that a profiler can time each.
+policy; its four stages are methods, and a call marks each on the device
+clock as the span ``dim.observe``, ``dim.encode``, ``dim.plan`` or
+``dim.act`` (``utils.profiling``).
 """
 
 import copy
@@ -17,6 +19,7 @@ from oatomobile_torch.baselines.learned.observation import (Observation,
                                                              observe)
 from oatomobile_torch.models.dim import ImitativeModel
 from oatomobile_torch.sim.types import SceneState, WorldParams
+from oatomobile_torch.utils import profiling
 
 ENCODER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -91,9 +94,15 @@ class DimPolicy:
 
   def __call__(self, world_params: WorldParams,
                states: SceneState) -> Tuple[torch.Tensor, SceneState]:
-    obs = self.observe(world_params, states)
-    plan = self.plan(self.encode(obs), obs)
-    return self.act(world_params, states, plan, obs)
+    dev = states.hero_xy.device
+    with profiling.span("dim.observe", dev):
+      obs = self.observe(world_params, states)
+    with profiling.span("dim.encode", dev):
+      z = self.encode(obs)
+    with profiling.span("dim.plan", dev):
+      plan = self.plan(z, obs)
+    with profiling.span("dim.act", dev):
+      return self.act(world_params, states, plan, obs)
 
 
 def make_dim_policy(model: ImitativeModel, **kwargs) -> DimPolicy:

@@ -21,11 +21,13 @@ distribution.  ``BENCH_DIM_INPUT`` sets its visual input size (100) and
 TF32 is off for GEMMs and convolutions.
 
 Other knobs: ``BENCH_BATCH``, ``BENCH_TOWN``, ``BENCH_VEHICLES``,
-``BENCH_STEPS``.  ``BENCH_PROFILE=1`` adds, on stderr, a per-layer
-breakdown of a step (for DIM: observe, encoder, planner, bridge), the
-stages of one DIM policy call on CUDA events (both eager, op by op), and
-the device's busy time, kernel count and idle share per step of the
-captured rollout (``utils.profiling.device_busy``).
+``BENCH_STEPS``.  ``BENCH_PROFILE=1`` adds, on stderr, the median device
+ms of each span of the program in the replayed step (``autopilot`` or
+``dim.observe``, ``dim.encode``, ``dim.plan``, ``dim.act``; then
+``world_step``, ``sensors``, ``bookkeeping``; ``rollout.issue`` a step:
+``utils.profiling.snapshot``'s marks of the last step of each rollout
+call), and the device's busy time, operation count and idle share per step
+of the captured rollout (``utils.profiling.device_busy``).
 
 ``--cpu`` runs the same workload on the CPU (as the JAX ``bench.py``
 runs on whatever platform JAX has; ``BENCH_PROFILE`` needs the card).
@@ -37,87 +39,26 @@ Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}, with
 import argparse
 import json
 import os
+import statistics
 import sys
 import time
 
 import torch
 
 from oatomobile_torch.envs.batched import BatchedEnv
-from oatomobile_torch.ops import bev, bev_cuda
-from oatomobile_torch.sim import autopilot_policy, world_step
 from oatomobile_torch.utils import profiling
 
 
-def _timer(totals: dict):
-  """``timed(name, fn, *args)``: ``fn(*args)`` with its host time, between
-  two device synchronises, added to ``totals[name]``."""
-
-  def timed(name, fn, *args):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn(*args)
-    torch.cuda.synchronize()
-    totals[name] = totals.get(name, 0.0) + (time.perf_counter() - t0)
-    return out
-
-  return timed
-
-
-def layer_times(env: BatchedEnv, policy=None, steps: int = 20) -> dict:
-  """Mean milliseconds per step of each layer of the rollout body, timed
-  on the host clock with a device synchronise after each layer (so the
-  layers do not overlap; their sum exceeds an unsynchronised step).  With
-  a ``DimPolicy`` the policy's stages are timed instead of the autopilot
-  and the checksum's splat (its policy synthesises the LIDAR)."""
-  params, state = env.params, env.state
-  totals = {}
-  timed = _timer(totals)
-  for _ in range(steps):
-    if policy is None:
-      actions, state = timed("autopilot", autopilot_policy, params, state)
-    else:
-      obs = timed("observe", policy.observe, params, state)
-      z = timed("encoder", policy.encode, obs)
-      plan = timed("planner", policy.plan, z, obs)
-      actions, state = timed("bridge", policy.act, params, state, plan, obs)
-    new_state = timed("world_step", world_step, params, state, actions)
-    if policy is None:
-      inputs = timed("bev_gather", bev.gather_inputs, params, new_state)
-      image = timed("bev_kernel", bev_cuda.splat_lidar_batch, *inputs)
-      timed("checksum", lambda x: x.reshape(x.shape[0], -1).sum(-1), image)
-    done = timed("done", env._done, new_state)  # pylint: disable=protected-access
-    state = timed("auto_reset", env._reset_where_done, new_state, done)  # pylint: disable=protected-access
-  return {name: 1e3 * t / steps for name, t in totals.items()}
-
-
-def policy_stage_ms(policy, params, state, calls: int = 5) -> dict:
-  """Milliseconds of each stage of one DIM policy call (observe, encoder,
-  planner, bridge) and of the whole call: CUDA events between the stages,
-  no synchronise inside the call, so a stage's time is the device's time
-  from its first to its last launch (the host's launch work included
-  where the device waits for it); the mean over ``calls`` calls after one
-  warm-up call."""
-  names = ("observe", "encoder", "planner", "bridge")
-  totals = dict.fromkeys(names + ("call",), 0.0)
-  for i in range(calls + 1):
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-    torch.cuda.synchronize()
-    events[0].record()
-    obs = policy.observe(params, state)
-    events[1].record()
-    z = policy.encode(obs)
-    events[2].record()
-    plan = policy.plan(z, obs)
-    events[3].record()
-    policy.act(params, state, plan, obs)
-    events[4].record()
-    events[4].synchronize()
-    if i == 0:
-      continue
-    for k, name in enumerate(names):
-      totals[name] += events[k].elapsed_time(events[k + 1]) / calls
-    totals["call"] += events[0].elapsed_time(events[4]) / calls
-  return totals
+def mark_medians(snapshot: dict, origin: str = "replay") -> dict:
+  """The median ms of each span's samples of ``origin`` in a
+  ``profiling.snapshot()`` (per step for spans over several steps),
+  by name."""
+  out = {}
+  for name, series in sorted(snapshot.items()):
+    ms = [s.ms / s.count for s in series["samples"] if s.origin == origin]
+    if ms:
+      out[name] = statistics.median(ms)
+  return out
 
 
 def dim_policy(size: int = 100, encoder_dtype: str = "float32",
@@ -186,12 +127,9 @@ def main(argv=None) -> None:
         file=sys.stderr)
   if profile:
     profile_steps = 16 if policy is None else 4
-    print("layers_ms_per_step: " + json.dumps(
-        layer_times(env, policy, steps=20 if policy is None else 5)),
-          file=sys.stderr)
-    if policy is not None:
-      print("policy_call_ms: " + json.dumps(
-          policy_stage_ms(policy, env.params, env.state)), file=sys.stderr)
+    # The last step of each rollout call, from the captured step's marks.
+    print("marks_ms_per_step: " + json.dumps(
+        mark_medians(profiling.snapshot())), file=sys.stderr)
     print("device: " + json.dumps(profiling.device_busy(
         lambda: env.rollout(profile_steps, policy=policy, **rollout_kwargs),
         profile_steps, 1e3 * elapsed / steps)), file=sys.stderr)

@@ -29,6 +29,7 @@ import torch
 from oatomobile_torch import device as device_lib
 from oatomobile_torch.core.dataset import Dataset, Episode
 from oatomobile_torch.ops import transforms as tf_ops
+from oatomobile_torch.utils import profiling
 
 # Image modalities eligible for uint8 packing.  An explicit allowlist, not
 # a value-range heuristic: a [N,T,2] trajectory of a mostly-stationary run
@@ -827,8 +828,10 @@ class CARLADataset(Dataset):
     index = torch.as_tensor(np.concatenate(
         [np.sort(order[s:s + batch_size]) for s in starts]), device=device)
     for start in starts:
-      idx = index[start:start + batch_size]
-      yield {k: v.index_select(0, idx) for k, v in data.items()}
+      with profiling.span("loader.gather"):
+        idx = index[start:start + batch_size]
+        batch = {k: v.index_select(0, idx) for k, v in data.items()}
+      yield batch
 
   @staticmethod
   def is_packed(path: str) -> bool:

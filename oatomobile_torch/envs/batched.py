@@ -40,6 +40,7 @@ from oatomobile_torch.sim.types import (SceneState, clone_state, copy_state_,
                                         map_state)
 from oatomobile_torch.sim.util import norm
 from oatomobile_torch.sim.world import SIMULATOR_FPS
+from oatomobile_torch.utils import profiling
 
 STAT_DTYPES = {"episodes": torch.int32, "collisions": torch.int32,
                "distance": torch.float32, "obs_checksum": torch.float32}
@@ -183,30 +184,49 @@ class BatchedEnv:
                          compute: Tuple[str, ...],
                          collect_transform: Optional[Callable]):
     """One rollout step on the static buffers: policy -> world step ->
-    done -> stats -> sensors -> auto-reset, the next state written into
+    sensors -> done, stats and auto-reset, the next state written into
     the live state's buffers.  Returns the collected observations (after
-    ``collect_transform``), an empty dict when nothing is collected."""
+    ``collect_transform``), an empty dict when nothing is collected.
+
+    Each part is a span with device marks (``utils.profiling``):
+    ``autopilot`` (the expert; a ``DimPolicy`` marks its own stages),
+    ``world_step``, ``sensors`` (the ``compute`` and ``collect``
+    synthesis) and ``bookkeeping``, under ``step``."""
     params, state, stats, B = (self._params, self._state, self._stats,
                                self._local_batch)
+    dev = self._device
+    span = profiling.span
+
+    def act():
+      if policy is not _autopilot:
+        return policy(params, state)
+      with span("autopilot", dev):
+        return policy(params, state)
 
     def step():
-      actions, live = policy(params, state)
-      new_state = world_step(params, live, actions)
-      done = self._done(new_state)
-      if compute:
-        obs_c = synth.synthesize(params, new_state, compute)
-        for v in obs_c.values():
-          stats["obs_checksum"] += v.to(torch.float32).reshape(B, -1).sum(-1)
-      stats["episodes"] += done.to(torch.int32)
-      stats["collisions"] += (new_state.collision > 0).to(torch.int32)
-      stats["distance"] += norm(new_state.hero_xy - live.hero_xy)
-      obs = {}
-      if collect:
-        obs = synth.synthesize(params, new_state, collect)
-        if collect_transform is not None:
-          obs = collect_transform(obs)
-      copy_state_(state, self._reset_where_done(new_state, done))
-      return obs
+      with span("step"):
+        actions, live = act()
+        with span("world_step", dev):
+          new_state = world_step(params, live, actions)
+        obs = {}
+        if compute or collect:
+          with span("sensors", dev):
+            if compute:
+              obs_c = synth.synthesize(params, new_state, compute)
+              for v in obs_c.values():
+                stats["obs_checksum"] += v.to(torch.float32).reshape(
+                    B, -1).sum(-1)
+            if collect:
+              obs = synth.synthesize(params, new_state, collect)
+              if collect_transform is not None:
+                obs = collect_transform(obs)
+        with span("bookkeeping", dev):
+          done = self._done(new_state)
+          stats["episodes"] += done.to(torch.int32)
+          stats["collisions"] += (new_state.collision > 0).to(torch.int32)
+          stats["distance"] += norm(new_state.hero_xy - live.hero_xy)
+          copy_state_(state, self._reset_where_done(new_state, done))
+        return obs
 
     return graphs.CapturedStep(step, self._device, pool=self._pool)
 
@@ -254,7 +274,10 @@ class BatchedEnv:
     -> step -> auto-reset); nothing is fetched to the host.  On a card the
     step is captured into a CUDA graph at the first rollout of each
     (collect, compute, policy, collect_transform) and replayed once a
-    step.
+    step.  Spans (``utils.profiling``): ``rollout.chunk`` around the call,
+    ``rollout.issue`` around the steps (with device marks before the
+    first and after the last) and ``rollout.gather`` around the copies
+    returned.
 
     Args:
       num_steps: number of steps.
@@ -287,18 +310,22 @@ class BatchedEnv:
                                       collect_transform))
     step = self._rollout_cache[key][2]
 
-    for v in self._stats.values():
-      v.zero_()
-    out = {}
-    for t in range(num_steps):
-      obs = step()
-      if t == 0:
-        out = {k: torch.empty((num_steps,) + v.shape, dtype=v.dtype,
-                              device=v.device) for k, v in obs.items()}
-      for k, v in obs.items():
-        out[k][t].copy_(v)
-    stats = self._global({k: v.clone() for k, v in self._stats.items()})
-    return self.state, (self._global(out, 1) if collect else ()), stats
+    with profiling.span("rollout.chunk"):
+      out = {}
+      with profiling.span("rollout.issue", self._device, count=num_steps):
+        for v in self._stats.values():
+          v.zero_()
+        for t in range(num_steps):
+          obs = step()
+          if t == 0:
+            out = {k: torch.empty((num_steps,) + v.shape, dtype=v.dtype,
+                                  device=v.device) for k, v in obs.items()}
+          for k, v in obs.items():
+            out[k][t].copy_(v)
+      with profiling.span("rollout.gather"):
+        stats = self._global({k: v.clone() for k, v in self._stats.items()})
+        return (self.state, (self._global(out, 1) if collect else ()),
+                stats)
 
   def _rollout_eager(
       self,

@@ -27,6 +27,11 @@ Kernel launches: each kernel wrapper counts its launches in Python
 wrapper once and launches nothing, and a replay launches without running
 it; so the runner takes back what the capture counted and adds it again
 at each replay, and the counters read as the eager loop's.
+
+Marks (``utils.profiling``): the runner tells the profiling registry what
+each call runs (eager, capture, replay).  The device marks that the step's
+spans record during the capture are nodes of the graph; the runner keeps
+them with the graph and hands them in after each replay.
 """
 
 import gc
@@ -35,6 +40,7 @@ import time
 import torch
 
 from oatomobile_torch.ops import bev_cuda
+from oatomobile_torch.utils import profiling
 
 # Eager calls on the side stream before the capture.
 WARMUP_STEPS = 2
@@ -73,6 +79,8 @@ class CapturedStep:
     self._graph = None
     self._outputs = None
     self._launches = None
+    # The graph's device marks: they live as long as the graph.
+    self._marks = ()
 
   @property
   def captured(self) -> bool:
@@ -80,18 +88,24 @@ class CapturedStep:
 
   def __call__(self):
     if not self._cuda:
-      return self._fn()
+      with profiling.running("eager"):
+        return self._fn()
     if self._graph is None:
       if self._warm < WARMUP_STEPS:
         self._warm += 1
-        return self._run_on_side_stream()
+        with profiling.running("eager"):
+          return self._run_on_side_stream()
       before = _launch_counts()
-      self._graph, self._outputs = self._record()
+      with profiling.running("capture") as marks:
+        self._graph, self._outputs = self._record()
+      self._marks = tuple(marks)
       # What the capture counted is launched by each replay.
       self._launches = [n - b for n, b in zip(_launch_counts(), before)]
       for module, b in zip(KERNEL_MODULES, before):
         module.launches = b
-    self._graph.replay()
+    with profiling.running("replay"):
+      self._graph.replay()
+    profiling.replayed(self._marks)
     for module, n in zip(KERNEL_MODULES, self._launches):
       module.launches += n
     return self._outputs
@@ -124,8 +138,8 @@ class CapturedStep:
     collecting = gc.isenabled()
     gc.disable()
     try:
-      with torch.cuda.graph(graph, pool=self._pool,
-                            stream=self._side_stream()):
+      with profiling.span("capture"), torch.cuda.graph(
+          graph, pool=self._pool, stream=self._side_stream()):
         outputs = self._fn()
     finally:
       if collecting:

@@ -21,6 +21,7 @@ from torch import nn
 
 from oatomobile_torch import rng as rng_lib
 from oatomobile_torch.parallel import mesh as mesh_lib
+from oatomobile_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -108,7 +109,10 @@ def make_update_fn(
   Each call splits ``state.rng`` into the next key and this step's key
   (as the JAX update does), takes the gradient of ``loss_fn(model, batch,
   step_key)`` and steps ``state.optimizer``.  The loss comes back as a
-  device scalar: reading it is the caller's synchronisation.
+  device scalar: reading it is the caller's synchronisation.  A call is
+  the span ``update`` with device marks (``utils.profiling``), split into
+  ``update.forward`` (to the loss), ``update.backward`` (the gradient and
+  its all-reduce) and ``update.optimizer`` (accumulation, clip, step).
 
   Args:
     loss_fn: ``(model, batch, rng) -> scalar loss``.
@@ -140,16 +144,25 @@ def make_update_fn(
       return loss_fn(model, mesh_lib.shard_batch(mesh, batch), step_rng)
 
   def update(state: TrainState, batch) -> Tuple[TrainState, torch.Tensor]:
-    keys = rng_lib.split(state.rng)
-    state.rng, step_rng = keys[0], keys[1]
-    state.step += 1
     params = [p for p in state.model.parameters() if p.requires_grad]
-    loss = local_loss(state.model, batch, step_rng)
-    grads = list(torch.autograd.grad(loss, params))
-    if sharded:
-      _all_reduce_mean_(mesh, grads)
-      loss = mesh_lib.all_reduce_sum_(mesh, loss.detach().clone())
-      loss /= mesh.shape[mesh_lib.DATA_AXIS]
+    dev = params[0].device
+    with profiling.span("update", dev):
+      keys = rng_lib.split(state.rng)
+      state.rng, step_rng = keys[0], keys[1]
+      state.step += 1
+      with profiling.span("update.forward", dev):
+        loss = local_loss(state.model, batch, step_rng)
+      with profiling.span("update.backward", dev):
+        grads = list(torch.autograd.grad(loss, params))
+        if sharded:
+          _all_reduce_mean_(mesh, grads)
+          loss = mesh_lib.all_reduce_sum_(mesh, loss.detach().clone())
+          loss /= mesh.shape[mesh_lib.DATA_AXIS]
+      with profiling.span("update.optimizer", dev):
+        _optimizer_step(state, params, grads)
+    return state, loss.detach()
+
+  def _optimizer_step(state: TrainState, params, grads) -> None:
     if grad_accum > 1:
       if state.acc_grads is None:
         state.acc_grads = [torch.zeros_like(p) for p in params]
@@ -159,7 +172,7 @@ def make_update_fn(
         acc.add_((g - acc) / (n + 1))
       state.mini_step = (n + 1) % grad_accum
       if state.mini_step:
-        return state, loss.detach()
+        return
       grads, state.acc_grads = state.acc_grads, None
     if clip_norm is not None:
       _clip_by_global_norm(grads, clip_norm)
@@ -167,7 +180,6 @@ def make_update_fn(
       p.grad = g
     state.optimizer.step()
     state.optimizer.zero_grad(set_to_none=True)
-    return state, loss.detach()
 
   return update
 

@@ -155,3 +155,40 @@ def test_capture_survives_a_stale_graph_in_a_reference_cycle(card):
   finally:
     gc.set_threshold(*thresholds)
   assert bool((stats["obs_checksum"] > 0).all())
+
+
+def test_a_captured_step_marks_its_replays_on_the_device_clock(card):
+  import gc  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.utils import profiling  # pylint: disable=import-outside-toplevel
+  parts = ("autopilot", "world_step", "sensors", "bookkeeping")
+  profiling.reset()
+  env = BatchedEnv("Town01", 64, num_vehicles=4, seed=2, device=card)
+  for _ in range(3):
+    _, _, stats = env.rollout(4, compute=("lidar",))
+    stats["distance"].cpu()
+  snap = profiling.snapshot()
+  # The first call warms two steps eagerly, captures the third and
+  # replays from there; each call's last replay is read once.
+  for name in parts:
+    origins = [s.origin for s in snap[name]["samples"]]
+    assert origins.count("eager") == 2 and origins.count("replay") == 3
+    assert all(s.ms > 0.0 for s in snap[name]["samples"])
+  issues = [s for s in snap["rollout.issue"]["samples"]
+            if s.origin == "replay"]
+  assert [s.index for s in issues] == [1, 2]
+  for issue in issues:
+    step = sum(s.ms for name in parts for s in snap[name]["samples"]
+               if s.origin == "replay" and s.index == issue.index)
+    assert 0.5 < step / (issue.ms / issue.count) < 1.5
+    assert 0.0 <= issue.gap_ms < issue.period_ms
+  # A freed graph's marks stay readable, and a new graph's are read.
+  del env
+  gc.collect()
+  env = BatchedEnv("Town01", 64, num_vehicles=4, seed=3, device=card)
+  for _ in range(2):
+    _, _, stats = env.rollout(4, compute=("lidar",))
+    stats["distance"].cpu()
+  snap = profiling.snapshot()
+  assert [s.origin for s in snap["world_step"]["samples"]].count(
+      "replay") == 5
+  profiling.reset()
