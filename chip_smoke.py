@@ -2,13 +2,15 @@
 """Chip smoke test of the PyTorch/CUDA port (``oatomobile_torch``).
 
     python3 chip_smoke.py [--prev-splat PATH ...] [--probe-rounds N]
+                          [--dim-plan]
 
 Needs one CUDA card and the CUDA toolkit (nvcc).  It:
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds every kernel of the main path from the sources in this
-     checkout (the BEV splat, csrc/bev_splat.cu) and prints the build time,
-     what ptxas reports and the loops of the kernel's SASS (cuobjdump);
+     checkout (the BEV splat, csrc/bev_splat.cu; the DIM planner,
+     csrc/dim_plan.cu) and prints the build time, what ptxas reports and
+     the loops of each kernel's SASS (cuobjdump);
   3. holds each kernel against its plain PyTorch version on the card: on
      the inputs the main path gives it (Town01, 16 NPCs, after 20 autopilot
      steps) and on inputs that stress its culling
@@ -43,9 +45,15 @@ Needs one CUDA card and the CUDA toolkit (nvcc).  It:
      ``make_dim_policy(ImitativeModel((4, 2), (100, 100)),
      num_plan_steps=20)``, float32 encoder, ``compute=()``: a short warm-up
      rollout, then a timed one with the kernels' launch counts set to 0
-     just before it and read just after (one splat a step), and the
-     stages of one policy call (observe, encoder, planner, bridge) on CUDA
-     events; then the DIM entry (``oatomobile_torch.entry``): its
+     just before it and read just after (one splat and one planner kernel
+     a step), and the stages of one policy call (observe, encoder,
+     planner, bridge) on CUDA events; then the DIM planner kernel on that
+     path's inputs (``check_dim_plan``): its plan equal to the autograd
+     path's bit for bit and against the plain version (at most
+     DIM_PLAN_APART scenes apart),
+     its graph replay against the eager call, and its time beside its
+     bound, the plain version and the autograd plan eager and replayed
+     from a graph; then the DIM entry (``oatomobile_torch.entry``): its
      loss on the card against the CPU on the same seeded params (rtol
      ENTRY_RTOL) and its ``capture`` replays against the eager call, bit
      for bit, over ENTRY_CALLS calls on new inputs;
@@ -209,6 +217,12 @@ version on the main path's inputs, and timed in turn with this one (old,
 new, new, old) at the main path's final inputs; the first one's time is
 the kernels line's ``prev_ms``.
 
+``--dim-plan`` builds the kernels, then runs only the DIM planner
+kernel's check and timing, the DIM path (its launches: one a step), the
+single-scene learned agents captured against eager (one launch an act for
+the DIMAgent, none for RIP and CIL) and the RIP-WCM CARNOVEL row (no
+launch), and prints the kernel's JSON line.
+
 ``--probe-rounds N`` builds the kernel, then runs only phases 10 and 11
 above (the evaluator's check, the route check and the CARNOVEL runs) N
 times, each round on towns built anew, and stops without the last line.
@@ -241,6 +255,19 @@ DIM_WARMUP_STEPS = 4
 # distance of a 10-step rollout (metres).
 DIM_CALL_ATOL = 1e-3
 DIM_DISTANCE_ATOL = 1e-2
+# The DIM planner kernel at the DIM path's inputs (BATCH scenes, the
+# policy's 20 Adam steps): its plan equal to the autograd path's bit for
+# bit (best iterates too), and within reach of the plain version, which
+# sums in other orders, so a scene whose first Adam step (lr * sign(g)) or
+# best iterate sits on a rounding may part: at most DIM_PLAN_APART scenes
+# further than DIM_PLAN_ATOL metres or on another best iterate; its graph
+# replay equal to the eager call.
+DIM_PLAN = dict(num_steps=20, lr=5e-2, epsilon=1.0, horizon=4)
+DIM_PLAN_ATOL, DIM_PLAN_APART = 1e-4, 3
+# The benchmark's frozen count of the plan's products as the autograd path
+# does them (the DIM step's FLOPs less the encoder's: ~7.7 GFLOP at 1024
+# scenes): the planner's bound by that count.
+DIM_PLAN_FROZEN_FLOP = 7.7e9
 
 # The evaluator on the card against the CPU: two CoRL2017 Town02 tasks,
 # 2 episodes each; the autopilot's and RIP's horizons and distance limits
@@ -481,10 +508,11 @@ def prev_splat(source: str, bev_cuda):
   return name, library, launch
 
 
-def print_build(name: str, bev_cuda, library: str) -> None:
-  """What ptxas said in the last build, and the loops of the SASS."""
+def print_build(name: str, wrapper, library: str) -> None:
+  """What ptxas said in ``wrapper``'s last build, and the loops of the
+  SASS."""
   from oatomobile_torch import sass  # pylint: disable=import-outside-toplevel
-  for line in bev_cuda.build_log.splitlines():
+  for line in wrapper.build_log.splitlines():
     if "registers" in line or "bytes stack" in line:
       print("ptxas {}: {}".format(name, line.strip()))
   try:
@@ -667,13 +695,13 @@ def check_entry() -> None:
          "captured once")
 
 
-def drive_dim_path() -> int:
-  """The DIM closed loop at full width; returns the splat's launches in
-  the timed rollout."""
+def drive_dim_path() -> tuple:
+  """The DIM closed loop at full width; returns the splat's and the
+  planner's launches in the timed rollout."""
   import torch  # pylint: disable=import-outside-toplevel
   from oatomobile_torch import bench  # pylint: disable=import-outside-toplevel
   from oatomobile_torch.envs.batched import BatchedEnv  # pylint: disable=import-outside-toplevel
-  from oatomobile_torch.ops import bev_cuda  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import bev_cuda, dim_plan_cuda  # pylint: disable=import-outside-toplevel
   from oatomobile_torch import graphs  # pylint: disable=import-outside-toplevel
   from oatomobile_torch.utils import profiling  # pylint: disable=import-outside-toplevel
   env = BatchedEnv(TOWN, BATCH, num_vehicles=VEHICLES, route_capacity=1024,
@@ -687,27 +715,27 @@ def drive_dim_path() -> int:
   print("dim path: the step captured in {:.3f}s, {} bytes reserved for its "
         "graph's pool (memory_reserved after the capture less before)".format(
             graphs.capture_seconds, graphs.capture_bytes))
-  bev_cuda.launches = 0
+  bev_cuda.launches = dim_plan_cuda.launches = 0
   profiling.reset()
   t0 = time.perf_counter()
   _, _, s = env.rollout(DIM_STEPS, policy=policy)
   float(s["distance"].sum())  # the fetch waits for the device
   elapsed = time.perf_counter() - t0
-  launches = bev_cuda.launches
+  launches, plan_launches = bev_cuda.launches, dim_plan_cuda.launches
   s = {k: v.cpu() for k, v in s.items()}
   finite = all(bool(torch.isfinite(v.float()).all()) for v in s.values())
   print("dim path: {} x {} steps in {:.3f}s = {:.1f} env steps/s ({:.2f} "
         "ms a step of graph replays; warm-up {} steps {:.1f}s, the capture "
-        "included); bev_splat launches={} for {} "
+        "included); bev_splat launches={}, dim_plan launches={} for {} "
         "steps; stats finite={} distance_mean={:.2f}m episodes={} "
         "collisions={}".format(
             BATCH, DIM_STEPS, elapsed, BATCH * DIM_STEPS / elapsed,
             1e3 * elapsed / DIM_STEPS, DIM_WARMUP_STEPS, warmup, launches,
-            DIM_STEPS, finite, float(s["distance"].mean()),
+            plan_launches, DIM_STEPS, finite, float(s["distance"].mean()),
             int(s["episodes"].sum()), int(s["collisions"].sum())))
-  if launches != DIM_STEPS:
-    fail("bev_splat launched {} times in {} DIM steps".format(launches,
-                                                              DIM_STEPS))
+  if launches != DIM_STEPS or plan_launches != DIM_STEPS:
+    fail("bev_splat / dim_plan launched {} / {} times in {} DIM steps".format(
+        launches, plan_launches, DIM_STEPS))
   if not finite or not bool((s["distance"] > 0).any()):
     fail("DIM path stats are not finite or no scene moved")
   stages = {k: v for k, v in bench.mark_medians(profiling.snapshot()).items()
@@ -716,7 +744,122 @@ def drive_dim_path() -> int:
         "replayed step): {}".format(
             BATCH, ", ".join("{} {:.3f} ms".format(k, v)
                              for k, v in stages.items())))
-  return launches
+  return launches, plan_launches
+
+
+def dim_plan_flop(batch: int, horizon: int, num_steps: int) -> float:
+  """FP32 operations of the planner kernel's products (two a
+  multiply-add): every Adam step runs, each cell of the horizon, the GRU's
+  W_hh [192, 64] and W_ih [192, 2] and the head's [32, 64] and [4, 32]
+  forward, and their transposes backward, but for the first cell's W_hh
+  and W_ih (h_{-1} = z and y_{-1} = 0 take no gradient).  The elementwise
+  work is left out."""
+  h, d, head = 64, 2, 32
+  gru, head_macs = 3 * h * (h + d), head * h + 2 * d * head
+  forward = horizon * (gru + head_macs)
+  backward = (horizon - 1) * gru + horizon * head_macs
+  return 2.0 * batch * num_steps * (forward + backward)
+
+
+def check_dim_plan() -> dict:
+  """The planner kernel on the DIM path's inputs (BATCH Town01 scenes after
+  20 autopilot steps, the bench's seeded DIM policy): its plan against the
+  plain version and the autograd path, one graph replay against the eager
+  call, then its time (CUDA events around 20 back-to-back calls, median of
+  21 runs) beside its bounds, the plain version and the autograd plan,
+  eager and replayed from a CUDA graph.  Returns its line of the kernels
+  JSON."""
+  import torch  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch import bench  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.envs.batched import BatchedEnv  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.models import dim  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import dim_plan_cuda  # pylint: disable=import-outside-toplevel
+  env = BatchedEnv(TOWN, BATCH, num_vehicles=VEHICLES, route_capacity=1024,
+                   seed=0, device="cuda")
+  env.rollout(20)
+  policy = bench.dim_policy(100, "float32", device="cuda")
+  obs = policy.observe(env.params, env.state)
+  model, z, goal = policy.model, policy.encode(obs), obs.goal
+  weights = dim_plan_cuda.flow_weights(model.decoder)
+  steps, lr, epsilon = (DIM_PLAN[k] for k in ("num_steps", "lr", "epsilon"))
+
+  def kernel(z_in=z, goal_in=goal):
+    return dim_plan_cuda.plan(weights, z_in, goal_in, **DIM_PLAN)
+
+  def plain():
+    return dim_plan_cuda.plan_reference(weights, z, goal, **DIM_PLAN)
+
+  def autograd(z_in=z, goal_in=goal):
+    return dim.autograd_plan(model, z_in, steps, goal_in, lr, epsilon)
+
+  out, best = kernel()
+  others = {"plain": plain(), "autograd": autograd()}
+  torch.cuda.synchronize()
+  gaps, apart, best_apart = {}, {}, {}
+  for name, (other, other_best) in others.items():
+    scene_gap = (out - other).abs().amax((1, 2))
+    gaps[name] = float(scene_gap.max())
+    best_apart[name] = int((best != other_best).sum())
+    apart[name] = int(((scene_gap > DIM_PLAN_ATOL) |
+                       (best != other_best)).sum())
+  # One capture of the kernel, replayed on the same inputs.
+  z_static, goal_static = z.clone(), goal.clone()
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    captured, _ = kernel(z_static, goal_static)
+  graph.replay()
+  torch.cuda.synchronize()
+  replay_equal = torch.equal(captured, out)
+  finite = bool(torch.isfinite(out).all())
+  auto_equal = (torch.equal(out, others["autograd"][0]) and
+                torch.equal(best, others["autograd"][1]))
+  print("check dim_plan B={} ({} steps): equal to the autograd path bit for "
+        "bit {}; plan max_abs_diff against the plain version {} / the "
+        "autograd path {}; scenes further than {} m or on another best "
+        "iterate {} / {} (best iterate alone {} / {}; limit {} for the plain "
+        "version); graph replay bit-equal {}; finite {}".format(
+            BATCH, steps, auto_equal, gaps["plain"], gaps["autograd"],
+            DIM_PLAN_ATOL, apart["plain"], apart["autograd"],
+            best_apart["plain"], best_apart["autograd"], DIM_PLAN_APART,
+            replay_equal, finite))
+  if (not auto_equal or apart["plain"] > DIM_PLAN_APART or
+      not replay_equal or not finite):
+    fail("the dim_plan kernel disagrees with its plain version, the "
+         "autograd path or its own graph replay")
+
+  ms = cuda_ms(kernel, calls=20)
+  plain_ms = cuda_ms(plain, calls=2)
+  autograd_ms = cuda_ms(autograd, calls=2)
+  # The autograd plan captured (two warm-up calls on a side stream).
+  stream = torch.cuda.Stream()
+  stream.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(stream):
+    for _ in range(2):
+      autograd(z_static, goal_static)
+  torch.cuda.current_stream().wait_stream(stream)
+  auto_graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(auto_graph):
+    autograd(z_static, goal_static)
+  autograd_graph_ms = cuda_ms(auto_graph.replay, calls=5)
+  del auto_graph, graph
+  flop = dim_plan_flop(BATCH, DIM_PLAN["horizon"], steps)
+  bound_ms = 1e3 * flop / PEAK_FP32_PER_S
+  frozen_ms = 1e3 * DIM_PLAN_FROZEN_FLOP / PEAK_FP32_PER_S
+  print("timing dim_plan B={}: kernel {:.4f} ms, plain {:.3f} ms, autograd "
+        "eager {:.3f} ms, autograd replayed from a graph {:.3f} ms; bound "
+        "{:.4f} ms ({:.2f} GFLOP of the kernel's products at the FP32 peak; "
+        "{:.3f} ms by the benchmark's frozen ~7.7 GFLOP); {:.1f}% of its "
+        "bound".format(BATCH, ms, plain_ms, autograd_ms, autograd_graph_ms,
+                       bound_ms, flop / 1e9, frozen_ms, 100 * bound_ms / ms))
+  return {"name": "dim_plan", "status": "new (replaces no Pallas kernel)",
+          "route": "cuda", "source": "oatomobile_torch/csrc/dim_plan.cu",
+          "replaces": None, "ms": ms, "plain_ms": plain_ms,
+          "bound_ms": bound_ms, "bound_by": "operations",
+          "frozen_bound_ms": frozen_ms, "library_ms": None,
+          "autograd_ms": autograd_ms, "autograd_graph_ms": autograd_graph_ms,
+          "max_abs_err_plain": gaps["plain"],
+          "max_abs_err_autograd": gaps["autograd"],
+          "equal_to_autograd": auto_equal}
 
 
 def _episodes(results) -> list:
@@ -773,14 +916,14 @@ def drive_carnovel(name: str, policy, horizon: int, device="cuda") -> dict:
   """The 27 CARNOVEL tasks through evaluate_batched, one call per town
   group (each group's scenes are those one call over the suite builds),
   after a 2-step warm-up on the first group; prints per-group seconds,
-  env steps/s and the summary's rates.  Returns the splat's launches in
-  each group's run."""
+  env steps/s and the summary's rates; fails if the DIM planner kernel
+  launches.  Returns the splat's launches in each group's run."""
   import torch  # pylint: disable=import-outside-toplevel
   from oatomobile_torch.benchmarks.batched_eval import (evaluate_batched,  # pylint: disable=import-outside-toplevel
                                                         summarize)
   from oatomobile_torch.benchmarks.carnovel.benchmark import _TASKS  # pylint: disable=import-outside-toplevel
   from oatomobile_torch.maps import load_town  # pylint: disable=import-outside-toplevel
-  from oatomobile_torch.ops import bev_cuda  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import bev_cuda, dim_plan_cuda  # pylint: disable=import-outside-toplevel
 
   groups = {}
   for task_id, config in sorted(_TASKS.items()):
@@ -790,6 +933,7 @@ def drive_carnovel(name: str, policy, horizon: int, device="cuda") -> dict:
   evaluate_batched(next(iter(groups.values())), policy_fn=policy, horizon=2,
                    device=device)
   results, seconds, launches = {}, {}, {}
+  plan_launches = dim_plan_cuda.launches
   for town, tasks in groups.items():
     bev_cuda.launches = 0
     t0 = time.perf_counter()
@@ -797,12 +941,14 @@ def drive_carnovel(name: str, policy, horizon: int, device="cuda") -> dict:
                                     horizon=horizon, device=device))
     seconds[town] = time.perf_counter() - t0
     launches[town] = bev_cuda.launches
+  plan_launches = dim_plan_cuda.launches - plan_launches
   total = sum(seconds.values())
   summary = summarize(results)
   finite = all(torch.isfinite(torch.tensor(float(r["distance"])))
                for r in results.values())
   print("carnovel {}: {} tasks x {} steps in {:.3f}s = {:.1f} env steps/s; "
-        "per town group: {}; bev_splat launches per group: {}; success_rate"
+        "per town group: {}; bev_splat launches per group: {}; dim_plan "
+        "launches {}; success_rate"
         "={:.4f} collision_rate={:.4f} timeout_rate={:.4f} mean_distance="
         "{:.2f}m".format(
             name, len(results), horizon, total, len(results) * horizon /
@@ -810,8 +956,11 @@ def drive_carnovel(name: str, policy, horizon: int, device="cuda") -> dict:
                 town, len(groups[town]), seconds[town],
                 len(groups[town]) * horizon / seconds[town])
                              for town in groups),
-            launches, summary["success_rate"], summary["collision_rate"],
-            summary["timeout_rate"], summary["mean_distance"]))
+            launches, plan_launches, summary["success_rate"],
+            summary["collision_rate"], summary["timeout_rate"],
+            summary["mean_distance"]))
+  if plan_launches:
+    fail("the {} launched the DIM planner kernel".format(name))
   if len(results) != 27 or summary["episodes"] != 27 or not finite:
     fail("the CARNOVEL evaluation with the {} did not give 27 finite "
          "episodes".format(name))
@@ -1053,19 +1202,19 @@ def agent_run(make, eager: bool, steps: int) -> dict:
   steps, every step eager (``_EagerStep``) or captured: every step's
   observations, plans and actions on the host, the seconds with and
   without the reset, the agent's and the env step's host ms a step, the
-  splat's launches."""
+  splat's and the DIM planner's launches."""
   import numpy as np  # pylint: disable=import-outside-toplevel
   import torch  # pylint: disable=import-outside-toplevel
   from oatomobile_torch import graphs  # pylint: disable=import-outside-toplevel
   from oatomobile_torch.benchmarks.carnovel.benchmark import CARNOVEL  # pylint: disable=import-outside-toplevel
-  from oatomobile_torch.ops import bev_cuda  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import bev_cuda, dim_plan_cuda  # pylint: disable=import-outside-toplevel
   captured_step = graphs.CapturedStep
   if eager:
     graphs.CapturedStep = _EagerStep
   try:
     env = CARNOVEL(device="cuda").load(SINGLE_SCENE_TASK)
     env.seed(0)
-    bev_cuda.launches = 0
+    bev_cuda.launches = dim_plan_cuda.launches = 0
     t0 = time.perf_counter()
     obs = env.reset()
     trace = [{k: np.array(v) for k, v in obs.items()}]
@@ -1086,7 +1235,7 @@ def agent_run(make, eager: bool, steps: int) -> dict:
         break
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = bev_cuda.launches
+    launches, plan_launches = bev_cuda.launches, dim_plan_cuda.launches
     env.close()
   finally:
     graphs.CapturedStep = captured_step
@@ -1098,7 +1247,7 @@ def agent_run(make, eager: bool, steps: int) -> dict:
                                        split["env step"][skip:]))
   return {"trace": trace, "plans": agent.plans, "actions": actions,
           "seconds": t2 - t0, "step_seconds": t2 - t1, "steps": n,
-          "launches": launches,
+          "launches": launches, "plan_launches": plan_launches,
           "split_ms": {k: round(1e3 * sum(v) / n, 3)
                        for k, v in split.items()},
           "replay_split_ms": {k: round(1e3 * sum(v[skip:]) / (n - skip), 3)
@@ -1106,12 +1255,14 @@ def agent_run(make, eager: bool, steps: int) -> dict:
           "replay_steps_per_s": (n - skip) / replay_s}
 
 
-def compare_captured_agents() -> int:
+def compare_captured_agents() -> tuple:
   """The learned single-scene agents, captured against eager from the same
   seed on the card (observations, plans and actions bit for bit), with
-  their steps/s; returns the captured runs' splat launches."""
+  their steps/s; returns the captured runs' splat launches and the DIM
+  planner's launches by agent (one an act for the DIMAgent, none for the
+  others)."""
   import numpy as np  # pylint: disable=import-outside-toplevel
-  total = 0
+  total, plan_launches = 0, {}
   for name, make in learned_agents("cuda").items():
     runs = {mode: agent_run(make, mode == "eager", AGENT_STEPS)
             for mode in ("eager", "captured")}
@@ -1128,7 +1279,8 @@ def compare_captured_agents() -> int:
           "= {:.1f} steps/s ({:.1f} without the reset, {:.1f} over the same "
           "steps); host ms a step captured {} / eager {}, over the steps "
           "after the capture {} / {}; bev_splat launches captured {} / "
-          "eager {}; observations, plans and actions bit-equal over every "
+          "eager {}; dim_plan launches captured {} / eager {}; "
+          "observations, plans and actions bit-equal over every "
           "step: {}{}".format(
               name, SINGLE_SCENE_TASK, captured["steps"],
               captured["seconds"], captured["steps"] / captured["seconds"],
@@ -1139,7 +1291,8 @@ def compare_captured_agents() -> int:
               eager["replay_steps_per_s"], captured["split_ms"],
               eager["split_ms"], captured["replay_split_ms"],
               eager["replay_split_ms"], captured["launches"],
-              eager["launches"], same,
+              eager["launches"], captured["plan_launches"],
+              eager["plan_launches"], same,
               " (differing: {})".format(differing) if differing else ""))
     if not same:
       fail("the captured {} differs from the eager one".format(name))
@@ -1148,8 +1301,15 @@ def compare_captured_agents() -> int:
     if captured["launches"] != captured["steps"] + 1:
       fail("bev_splat launched {} times in a captured {}-step single scene "
            "of the {}".format(captured["launches"], captured["steps"], name))
+    want = captured["steps"] if name == "DIMAgent" else 0
+    if captured["plan_launches"] != want or eager["plan_launches"] != want:
+      fail("dim_plan launched {} / {} times (captured / eager) in a {}-step "
+           "single scene of the {}".format(
+               captured["plan_launches"], eager["plan_launches"],
+               captured["steps"], name))
     total += captured["launches"]
-  return total
+    plan_launches[name] = captured["plan_launches"]
+  return total, plan_launches
 
 
 def check_collect_card_against_cpu(workdir: str) -> None:
@@ -2681,6 +2841,10 @@ def main() -> None:
   parser.add_argument("--probe-rounds", type=int, default=0,
                       help="run only the evaluator check and CARNOVEL this "
                       "many times, each round on towns built anew, and stop")
+  parser.add_argument("--dim-plan", action="store_true",
+                      help="run only the DIM planner kernel's check and "
+                      "timing and its launches on the DIM path, the "
+                      "single-scene learned agents and a RIP row, and stop")
   args = parser.parse_args()
   try:
     import torch  # pylint: disable=import-outside-toplevel
@@ -2692,7 +2856,7 @@ def main() -> None:
   try:
     from oatomobile_torch import graphs  # pylint: disable=import-outside-toplevel
     from oatomobile_torch.envs.batched import BatchedEnv  # pylint: disable=import-outside-toplevel
-    from oatomobile_torch.ops import bev, bev_cuda  # pylint: disable=import-outside-toplevel
+    from oatomobile_torch.ops import bev, bev_cuda, dim_plan_cuda  # pylint: disable=import-outside-toplevel
   except ImportError as exc:
     fail("oatomobile_torch not found next to this script ({})".format(exc))
   if "jax" in sys.modules or "oatomobile_tpu" in sys.modules:
@@ -2715,6 +2879,11 @@ def main() -> None:
   print("build: bev_splat {:.1f}s (nvcc {:.1f}s)".format(
       time.perf_counter() - t0, bev_cuda.build_seconds))
   print_build("bev_splat", bev_cuda, bev_cuda.LIBRARY)
+  t0 = time.perf_counter()
+  dim_plan_cuda.build()
+  print("build: dim_plan {:.1f}s (nvcc {:.1f}s)".format(
+      time.perf_counter() - t0, dim_plan_cuda.build_seconds))
+  print_build("dim_plan", dim_plan_cuda, dim_plan_cuda.LIBRARY)
   prevs = {}
   for source in args.prev_splat:
     name, library, launch = prev_splat(source, bev_cuda)
@@ -2722,6 +2891,18 @@ def main() -> None:
     print("build: {} from {} (nvcc {:.1f}s)".format(name, source,
                                                    bev_cuda.build_seconds))
     print_build(name, bev_cuda, library)
+  if args.dim_plan:
+    kernel = check_dim_plan()
+    kernel["launches_dim"] = drive_dim_path()[1]
+    kernel["launches_captured_agents"] = compare_captured_agents()[1]
+    from oatomobile_torch.baselines.learned.rip.policy import make_rip_policy  # pylint: disable=import-outside-toplevel
+    drive_carnovel("rip-wcm K={}".format(RIP_MEMBERS),
+                   make_rip_policy(rip_ensemble(), algorithm="WCM"),
+                   CARNOVEL_RIP_HORIZON)
+    kernel["launches_eval_rip"] = 0
+    print("total: {:.1f}s".format(time.perf_counter() - t_start))
+    print(json.dumps({"kernels": [kernel]}))
+    return
   if args.probe_rounds:
     probe_carnovel(args.probe_rounds)
     print("probe: {} rounds of the evaluator check, the route check and "
@@ -2865,9 +3046,13 @@ def main() -> None:
   check_dim_card_against_cpu()
 
   # -- 8. The DIM path ------------------------------------------------------------
-  launches_dim = drive_dim_path()
+  launches_dim, plan_launches_dim = drive_dim_path()
 
   lap("DIM check and path")
+
+  # -- 8a. The DIM planner kernel against its plain version and autograd ------
+  dim_plan_kernel = check_dim_plan()
+  lap("DIM planner kernel")
 
   # -- 8b. The DIM entry, card against CPU and captured against eager ---------
   check_entry()
@@ -2885,7 +3070,7 @@ def main() -> None:
   launches_single = drive_single_scene()
   lap("single scene")
   check_agents_card_against_cpu()
-  launches_agents = compare_captured_agents()
+  launches_agents, plan_launches_agents = compare_captured_agents()
   lap("learned agents captured")
 
   # -- 12. Collection and trainer updates on the card against the CPU ---------
@@ -2964,7 +3149,9 @@ def main() -> None:
       "library_ms": None,
       "prev_ms": ms_of[next(iter(prevs))] if prevs else None,
       "fill_ms": fill_ms,
-  }]
+  }, dict(dim_plan_kernel, launches_dim=plan_launches_dim,
+          launches_captured_agents=plan_launches_agents,
+          launches_eval_rip=0)]
   print("phase seconds: {}".format(", ".join(
       "{} {:.1f}".format(phase, end - start)
       for (_, start), (phase, end) in zip(marks, marks[1:]))))

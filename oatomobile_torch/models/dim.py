@@ -7,11 +7,14 @@ autoregressive flow; ``plan`` optimises the base sample of a trajectory
 under the imitation prior and the goal likelihood with Adam.
 
 The JAX package runs the plan's Adam steps as a ``lax.scan`` of
-``optax.adam`` updates; here they are a Python loop of the same update,
-written out in optax's order (``adam_update``), with the gradient from
-``torch.autograd.grad`` of the summed per-scene loss.  In a rollout on a
-card the loop, the autograd backward included, is captured with the rest
-of the step into one CUDA graph (``graphs.CapturedStep``), unrolled.
+``optax.adam`` updates.  Here ``plan_from_z`` runs them all in one launch
+of a hand-written CUDA kernel on the card, or its plain PyTorch version on
+the CPU (``ops/dim_plan_cuda``: the flow's forward, a hand-derived
+backward, Adam in optax's order, the best iterate).  ``autograd_plan`` is
+the same plan as a Python loop of ``adam_update`` with the gradient from
+``torch.autograd.grad`` (``best_adam_iterate`` over ``posterior_loss``):
+the yardstick that both are held against, and the pattern of RIP's
+aggregated plan.
 """
 
 from typing import Callable, Mapping, Optional, Tuple
@@ -25,6 +28,7 @@ from oatomobile_torch.models import initializers, transforms
 from oatomobile_torch.models.mlp import MLP
 from oatomobile_torch.models.perception import MobileNetV2
 from oatomobile_torch.models.sequence import LOG_2PI, AutoregressiveFlow
+from oatomobile_torch.ops import dim_plan_cuda
 
 CONTEXT_KEYS = ("visual_features", "velocity", "is_at_traffic_light",
                 "traffic_light_state")
@@ -96,6 +100,46 @@ def goal_likelihood(y: torch.Tensor, goal: torch.Tensor,
                0.5 * D * LOG_2PI)
   return (torch.logsumexp(comp_logp, dim=-1) -
           float(np.log(np.float32(K))))
+
+
+def posterior_loss(model: "ImitativeModel", z: torch.Tensor,
+                   goal: Optional[torch.Tensor] = None,
+                   epsilon=1.0) -> Callable[[torch.Tensor], torch.Tensor]:
+  """The plan's loss ``x -> [B]``: the per-scene negative imitation
+  posterior of ``decode(x, z)`` (the prior, plus the goal likelihood
+  where ``goal`` is given), differentiable by autograd."""
+
+  def loss_fn(x):
+    y = model.decode(x, z)
+    loss = model.imitation_prior_from_z(y, z)
+    if goal is not None:
+      loss = loss + goal_likelihood(y, goal, epsilon=epsilon)
+    return -loss
+
+  return loss_fn
+
+
+def autograd_plan(model: "ImitativeModel", z: torch.Tensor,
+                  num_steps: int = 10, goal: Optional[torch.Tensor] = None,
+                  lr=1e-1, epsilon=1.0):
+  """``plan_from_z`` by ``best_adam_iterate`` over ``posterior_loss``: the
+  plan as autograd computes it (~7,000 kernels at 20 steps on a card), the
+  yardstick of the planner kernel and its plain version.  Returns (plan
+  [B, T, 2], the best iterate's step [B] int32, counted from 0)."""
+  loss_fn, losses = posterior_loss(model, z, goal, epsilon), []
+
+  def recorded(x):
+    loss = loss_fn(x)
+    losses.append(loss.detach())
+    return loss
+
+  x0 = torch.zeros(z.shape[:1] + model.output_shape, dtype=torch.float32,
+                   device=z.device)
+  x_best = best_adam_iterate(recorded, x0, num_steps, lr)
+  # The strict rule from +inf: the first lowest loss, NaN never chosen.
+  step = (torch.stack(losses).nan_to_num(nan=float("inf")).argmin(0)
+          if losses else torch.zeros(z.shape[:1], device=z.device))
+  return model.decode(x_best, z), step.to(torch.int32)
 
 
 class ImitativeModel(nn.Module):
@@ -186,20 +230,14 @@ class ImitativeModel(nn.Module):
                   lr=1e-1,
                   epsilon=1.0) -> torch.Tensor:
     """``plan`` from a precomputed context encoding z [B, 64] (so the
-    encoder may run at another precision while the planner stays f32)."""
-
-    def loss_fn(x):
-      """Per-scene negative posterior [B]."""
-      y = self.decode(x, z)
-      loss = self.imitation_prior_from_z(y, z)
-      if goal is not None:
-        loss = loss + goal_likelihood(y, goal, epsilon=epsilon)
-      return -loss
-
-    x0 = torch.zeros(z.shape[:1] + self.output_shape, dtype=torch.float32,
-                     device=z.device)
-    x_best = best_adam_iterate(loss_fn, x0, num_steps, lr)
-    return self.decode(x_best, z)
+    encoder may run at another precision while the planner stays f32):
+    one launch of the planner kernel for CUDA tensors, its plain version
+    for CPU tensors (``ops/dim_plan_cuda.plan``, which raises on what the
+    kernel does not take).  The plan is not differentiable."""
+    return dim_plan_cuda.plan(dim_plan_cuda.flow_weights(self.decoder), z,
+                              goal, num_steps=num_steps, lr=lr,
+                              epsilon=epsilon,
+                              horizon=self.output_shape[0])[0]
 
   # -- preprocessing ---------------------------------------------------------------
 

@@ -26,15 +26,11 @@ import ctypes
 import functools
 import math
 import os
-import shutil
-import subprocess
-import tempfile
-import time
 
 import torch
 
 from oatomobile_torch import paths
-from oatomobile_torch.ops import bev
+from oatomobile_torch.ops import bev, nvcc
 
 BEV = bev.BEV_SIZE  # 200
 # Slot capacities of the kernel's shared memory (csrc/bev_splat.cu).
@@ -60,39 +56,14 @@ build_log = ""
 build_seconds = 0.0
 
 
-def _nvcc() -> str:
-  found = shutil.which("nvcc")
-  if found:
-    return found
-  default = "/usr/local/cuda/bin/nvcc"
-  if os.path.exists(default):
-    return default
-  raise RuntimeError("nvcc not found: the BEV splat kernel is built from "
-                     "{} at first use and needs the CUDA toolkit".format(
-                         SOURCE))
-
-
 def build(source: str = SOURCE, library: str = LIBRARY,
           headers=HEADERS) -> str:
   """Compiles ``source`` into ``library`` unless the library is newer than
   the source and every header it includes; returns the library path."""
   global build_log, build_seconds
-  if (os.path.exists(library) and os.path.getmtime(library) >= max(
-      os.path.getmtime(path) for path in (source, *headers))):
-    return library
-  os.makedirs(os.path.dirname(library), exist_ok=True)
-  fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(library))
-  os.close(fd)
-  cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, source]
-  t0 = time.perf_counter()
-  proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-  build_seconds = time.perf_counter() - t0
-  build_log = proc.stdout + proc.stderr
-  if proc.returncode != 0:
-    os.unlink(tmp)
-    raise RuntimeError("nvcc failed ({}):\n{}".format(" ".join(cmd),
-                                                     build_log))
-  os.replace(tmp, library)
+  built = nvcc.build(source, library, NVCC_FLAGS, headers)
+  if built is not None:
+    build_log, build_seconds = built
   return library
 
 

@@ -23,7 +23,7 @@ from oatomobile_torch.benchmarks.corl2017.benchmark import _TASKS
 from oatomobile_torch.datasets.carla import _resize_quantize
 from oatomobile_torch.envs.batched import BatchedEnv
 from oatomobile_torch.models import ImitativeModel
-from oatomobile_torch.ops import bev_cuda
+from oatomobile_torch.ops import bev_cuda, dim_plan_cuda
 from oatomobile_torch.sim import autopilot_policy
 from oatomobile_torch.sim.types import scene_state_to_numpy
 from oatomobile_tpu.envs.batched import BatchedEnv as JaxBatchedEnv
@@ -123,17 +123,25 @@ class FakeCapturedStep(graphs.CapturedStep):
 
 @pytest.fixture
 def fake_card(monkeypatch):
-  """The fake capture in place of the real one, and a splat wrapper that
-  counts its CPU calls as the card's wrapper counts launches."""
+  """The fake capture in place of the real one, and splat and planner
+  wrappers that count their CPU calls as the card's wrappers count
+  launches."""
   reference = bev_cuda.splat_lidar_batch_reference
+  plan = dim_plan_cuda.plan
 
   def counting_splat(*inputs):
     bev_cuda.launches += 1
     return reference(*inputs)
 
+  def counting_plan(*args, **kwargs):
+    dim_plan_cuda.launches += 1
+    return plan(*args, **kwargs)
+
   monkeypatch.setattr(graphs, "CapturedStep", FakeCapturedStep)
   monkeypatch.setattr(bev_cuda, "splat_lidar_batch", counting_splat)
   monkeypatch.setattr(bev_cuda, "launches", 0)
+  monkeypatch.setattr(dim_plan_cuda, "plan", counting_plan)
+  monkeypatch.setattr(dim_plan_cuda, "launches", 0)
   FakeCapturedStep.instances = []
   return FakeCapturedStep.instances
 
@@ -202,8 +210,8 @@ def test_evaluator_metrics_equal_eager(card, request):
 
 
 def test_dim_policy_rollout_equals_eager(fake_card):
-  # A narrow DIM (32x32 input) planning 3 Adam steps, its autograd
-  # gradient inside the step.
+  # A narrow DIM (32x32 input) planning 3 Adam steps, the planner (its
+  # plain version on the CPU) inside the step.
   def policy():
     return make_dim_policy(ImitativeModel(
         (4, 2), (32, 32), generator=torch.Generator().manual_seed(0),
@@ -215,6 +223,7 @@ def test_dim_policy_rollout_equals_eager(fake_card):
   got = _run(runner, True, 5, policy=policy())
   assert len(fake_card) == 1 and fake_card[0].captured
   assert bev_cuda.launches == 5  # the policy's LIDAR, once a step
+  assert dim_plan_cuda.launches == 5  # the plan, once a step
   want = _run(eager, False, 5, policy=policy())
   for g, w in zip(got, want):
     assert_trees_equal(g, w)

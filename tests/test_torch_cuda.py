@@ -192,3 +192,119 @@ def test_a_captured_step_marks_its_replays_on_the_device_clock(card):
   assert [s.origin for s in snap["world_step"]["samples"]].count(
       "replay") == 5
   profiling.reset()
+
+
+# -- The DIM planner kernel --------------------------------------------------
+
+# The planner at the DIM path's width: 1024 Town01 scenes, 20 Adam steps.
+PLAN = dict(num_steps=20, lr=5e-2, epsilon=1.0, horizon=4)
+
+
+def _dim_plan_inputs(card, scenes: int, seed: int):
+  """(model, flow weights, z, goals) of a DIM policy with weights from one
+  seeded generator on a Town01 scene batch after 5 autopilot steps."""
+  from oatomobile_torch.baselines.learned.dim.policy import make_dim_policy  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.models import ImitativeModel  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import dim_plan_cuda  # pylint: disable=import-outside-toplevel
+  env = BatchedEnv("Town01", scenes, num_vehicles=16, route_capacity=1024,
+                   seed=seed, device=card)
+  env.rollout(5)
+  policy = make_dim_policy(ImitativeModel(
+      generator=torch.Generator().manual_seed(seed), device=card))
+  obs = policy.observe(env.params, env.state)
+  return (policy.model, dim_plan_cuda.flow_weights(policy.model.decoder),
+          policy.encode(obs), obs.goal)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_dim_plan_kernel_matches_plain_version_and_autograd(card, seed):
+  """At 1024 scenes the kernel's plan equals the autograd path's bit for
+  bit (it repeats cuBLAS's and autograd's sums at these shapes), best
+  iterates and all.  The plain version sums in other orders on the card,
+  so a scene whose first Adam step (lr * sign(g)) or best iterate sits on
+  a rounding may part from it: at most 3 scenes of 1024 further than
+  1e-4 m or on another best iterate."""
+  from oatomobile_torch.models import dim  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import dim_plan_cuda  # pylint: disable=import-outside-toplevel
+  model, weights, z, goal = _dim_plan_inputs(card, 1024, seed)
+  out, best = dim_plan_cuda.plan(weights, z, goal, **PLAN)
+  auto, auto_best = dim.autograd_plan(model, z, PLAN["num_steps"], goal,
+                                      PLAN["lr"], PLAN["epsilon"])
+  plain, plain_best = dim_plan_cuda.plan_reference(weights, z, goal, **PLAN)
+  torch.cuda.synchronize()
+  assert torch.equal(out, auto) and torch.equal(best, auto_best)
+  apart = (((out - plain).abs().amax((1, 2)) > 1e-4) | (best != plain_best))
+  assert int(apart.sum()) <= 3
+  assert bool(torch.isfinite(out).all()) and bool((best > 0).any())
+
+
+def test_dim_plan_graph_replay_matches_eager_call(card):
+  from oatomobile_torch.ops import dim_plan_cuda  # pylint: disable=import-outside-toplevel
+  _, weights, z, goal = _dim_plan_inputs(card, 64, 3)
+  _, _, z_new, goal_new = _dim_plan_inputs(card, 64, 4)
+  z_static, goal_static = z.clone(), goal.clone()
+  dim_plan_cuda.plan(weights, z_static, goal_static, **PLAN)
+  torch.cuda.synchronize()
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    captured, captured_best = dim_plan_cuda.plan(weights, z_static,
+                                                 goal_static, **PLAN)
+  z_static.copy_(z_new)
+  goal_static.copy_(goal_new)
+  graph.replay()
+  eager, eager_best = dim_plan_cuda.plan(weights, z_new, goal_new, **PLAN)
+  torch.cuda.synchronize()
+  assert torch.equal(captured, eager)
+  assert torch.equal(captured_best, eager_best)
+
+
+def test_dim_plan_launches_once_a_plan(card):
+  """One launch a ``plan_from_z`` call, and one a step of a captured DIM
+  rollout (counted under replay); RIP's aggregated plan launches none."""
+  from oatomobile_torch.baselines.learned.dim.policy import make_dim_policy  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.baselines.learned.rip.agent import rip_plan  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import dim_plan_cuda  # pylint: disable=import-outside-toplevel
+  model, _, z, goal = _dim_plan_inputs(card, 16, 5)
+  before = dim_plan_cuda.launches
+  model.plan_from_z(z, goal=goal, num_steps=3)
+  assert dim_plan_cuda.launches == before + 1
+  env = BatchedEnv("Town02", 4, num_vehicles=8, seed=4, device=card)
+  policy = make_dim_policy(model)
+  before = dim_plan_cuda.launches
+  env.rollout(6, policy=policy)
+  torch.cuda.synchronize()
+  assert dim_plan_cuda.launches == before + 6
+  obs = policy.observe(env.params, env.state)
+  before = dim_plan_cuda.launches
+  rip_plan([model, model], obs.goal, obs.context, num_steps=2)
+  assert dim_plan_cuda.launches == before
+
+
+def test_dim_plan_kernel_refuses_what_it_does_not_take(card):
+  from oatomobile_torch.ops import dim_plan_cuda  # pylint: disable=import-outside-toplevel
+  _, weights, z, goal = _dim_plan_inputs(card, 8, 6)
+  before = dim_plan_cuda.launches
+  with pytest.raises(ValueError):  # not contiguous
+    dim_plan_cuda.plan(weights, z.t().contiguous().t(), goal, **PLAN)
+  with pytest.raises(ValueError):
+    dim_plan_cuda.plan(
+        weights._replace(w_hh=weights.w_hh.t().contiguous().t()), z, goal,
+        **PLAN)
+  with pytest.raises(ValueError):  # a scalar on the host
+    dim_plan_cuda.plan(weights, z, goal, **dict(PLAN, lr=torch.tensor(0.05)))
+  with pytest.raises(ValueError):
+    dim_plan_cuda.plan(weights, z, goal, **dict(PLAN, horizon=9))
+  with pytest.raises(ValueError):
+    dim_plan_cuda.plan(weights, z, goal, **dict(PLAN, num_steps=257))
+  with pytest.raises(ValueError):
+    dim_plan_cuda.plan(weights, z, goal.repeat(1, 4, 1), **PLAN)
+  assert dim_plan_cuda.launches == before
+  # The C entry point refuses what the wrapper would have.
+  out = torch.empty(8, 4, 2, device=card)
+  best = torch.empty(8, dtype=torch.int32, device=card)
+  err = dim_plan_cuda._library().dim_plan_launch(  # pylint: disable=protected-access
+      z.data_ptr(), goal.data_ptr(), 40, *goal.stride(),
+      *(w.data_ptr() for w in weights), None, 0.05, None, 1.0, 0.0, 7.35,
+      1.84, 2.3, *dim_plan_cuda._host_tables(20), out.data_ptr(),  # pylint: disable=protected-access
+      best.data_ptr(), 8, 4, 20, torch.cuda.current_stream().cuda_stream)
+  assert err != 0
