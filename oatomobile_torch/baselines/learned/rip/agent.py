@@ -42,6 +42,48 @@ def stack_ensemble(models: Sequence[ImitativeModel]) -> nn.ModuleList:
   return nn.ModuleList(models)
 
 
+def rip_encode(encoders: Sequence[nn.Module],
+               context: Mapping[str, torch.Tensor]) -> torch.Tensor:
+  """z [K, B, 64] in float32: each member's context encoding, the members
+  in turn (``dim.policy.encode``)."""
+  return torch.stack([encode(e, context) for e in encoders])
+
+
+def rip_plan_from_z(ensemble: Sequence[ImitativeModel],
+                    z: torch.Tensor,
+                    goal: torch.Tensor,
+                    *,
+                    algorithm: str = "WCM",
+                    num_steps: int = 10,
+                    lr=1e-1,
+                    epsilon=1.0) -> torch.Tensor:
+  """RIP plan [B, T, 2] from the members' encodings z [K, B, 64] (from
+  ``rip_encode``) and goals [B, K_goals, 2]: ``num_steps`` Adam steps of
+  the shared plan under the aggregated negative posteriors, the best
+  iterate decoded through member 0."""
+  if algorithm not in ALGORITHMS:
+    raise ValueError("algorithm {!r} is not one of {}".format(algorithm,
+                                                             ALGORITHMS))
+  first = ensemble[0]
+
+  def loss_fn(x):
+    """Per-scene aggregated negative posterior [B]."""
+    y = first.decode(x, z[0])
+    gl = goal_likelihood(y, goal, epsilon=epsilon)
+    neg = -torch.stack([m.imitation_prior_from_z(y, zk) + gl
+                        for m, zk in zip(ensemble, z)])  # [K, B]
+    if algorithm == "WCM":
+      return neg.amin(dim=0)
+    if algorithm == "BCM":
+      return neg.amax(dim=0)
+    return neg.mean(dim=0)
+
+  x0 = torch.zeros(z.shape[1:2] + first.output_shape, dtype=torch.float32,
+                   device=z.device)
+  x_best = best_adam_iterate(loss_fn, x0, num_steps, lr)
+  return first.decode(x_best, z[0])
+
+
 def rip_plan(ensemble: Sequence[ImitativeModel],
              goal: torch.Tensor,
              context: Mapping[str, torch.Tensor],
@@ -52,35 +94,16 @@ def rip_plan(ensemble: Sequence[ImitativeModel],
              epsilon=1.0,
              encoders: Optional[Sequence[nn.Module]] = None) -> torch.Tensor:
   """RIP plan [B, T, 2] for goals [B, K_goals, 2] and the models' context;
-  ``lr`` and ``epsilon`` are numbers or 0-d tensors.
+  ``lr`` and ``epsilon`` are numbers or 0-d tensors: ``rip_encode`` then
+  ``rip_plan_from_z``.
 
   ``encoders``: the members at the encoder's precision (from
   ``dim.policy.encoder_copy``); the members themselves when None.  z
   returns to float32 before the flow planner.
   """
-  if algorithm not in ALGORITHMS:
-    raise ValueError("algorithm {!r} is not one of {}".format(algorithm,
-                                                             ALGORITHMS))
-  encoders = ensemble if encoders is None else encoders
-  zs = [encode(e, context) for e in encoders]  # K x [B, 64]
-  first = ensemble[0]
-
-  def loss_fn(x):
-    """Per-scene aggregated negative posterior [B]."""
-    y = first.decode(x, zs[0])
-    gl = goal_likelihood(y, goal, epsilon=epsilon)
-    neg = -torch.stack([m.imitation_prior_from_z(y, z) + gl
-                        for m, z in zip(ensemble, zs)])  # [K, B]
-    if algorithm == "WCM":
-      return neg.amin(dim=0)
-    if algorithm == "BCM":
-      return neg.amax(dim=0)
-    return neg.mean(dim=0)
-
-  x0 = torch.zeros(zs[0].shape[:1] + first.output_shape, dtype=torch.float32,
-                   device=zs[0].device)
-  x_best = best_adam_iterate(loss_fn, x0, num_steps, lr)
-  return first.decode(x_best, zs[0])
+  z = rip_encode(ensemble if encoders is None else encoders, context)
+  return rip_plan_from_z(ensemble, z, goal, algorithm=algorithm,
+                         num_steps=num_steps, lr=lr, epsilon=epsilon)
 
 
 def rip_agent_plan(ensemble: nn.ModuleList, algorithm: str,

@@ -369,6 +369,13 @@ READERS = {
     "dim.planner_replay_ms": ("dim.plan", [
         _sample("dim.plan", 16.5), _sample("dim.plan", 90.0, profiled=True)],
                               16.5),
+    "rip.encoder_replay_ms": ("rip.encode", [
+        _sample("rip.encode", 115.0, count=4),
+        _sample("rip.encode", 117.0, count=4),
+        _sample("rip.encode", 300.0, count=4, profiled=True)], 116.0),
+    "rip.planner_replay_ms": ("rip.plan", [
+        _sample("rip.plan", 21.0, count=40),
+        _sample("rip.plan", 90.0, count=40, profiled=True)], 21.0),
     "train.forward_device_ms": ("update.forward", [
         _sample("update.forward", 20.0, origin="eager"),
         _sample("update.forward", 22.0, origin="eager"),
