@@ -2,14 +2,15 @@
 """Chip smoke test of the PyTorch/CUDA port (``oatomobile_torch``).
 
     python3 chip_smoke.py [--prev-splat PATH ...] [--probe-rounds N]
-                          [--dim-plan]
+                          [--dim-plan] [--group-norm]
 
 Needs one CUDA card and the CUDA toolkit (nvcc).  It:
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds every kernel of the main path from the sources in this
      checkout (the BEV splat, csrc/bev_splat.cu; the DIM planner,
-     csrc/dim_plan.cu) and prints the build time, what ptxas reports and
+     csrc/dim_plan.cu; the encoder's GroupNorm, csrc/group_norm.cu) and
+     prints the build time, what ptxas reports and
      the loops of each kernel's SASS (cuobjdump);
   3. holds each kernel against its plain PyTorch version on the card: on
      the inputs the main path gives it (Town01, 16 NPCs, after 20 autopilot
@@ -45,9 +46,9 @@ Needs one CUDA card and the CUDA toolkit (nvcc).  It:
      ``make_dim_policy(ImitativeModel((4, 2), (100, 100)),
      num_plan_steps=20)``, float32 encoder, ``compute=()``: a short warm-up
      rollout, then a timed one with the kernels' launch counts set to 0
-     just before it and read just after (one splat and one planner kernel
-     a step), and the stages of one policy call (observe, encoder,
-     planner, bridge) on CUDA events; then the DIM planner kernel on that
+     just before it and read just after (one splat, one planner and 52
+     GroupNorm launches a step), and the stages of one policy call
+     (observe, encoder, planner, bridge) on CUDA events; then the DIM planner kernel on that
      path's inputs (``check_dim_plan``): its plan equal to the autograd
      path's bit for bit and against the plain version (at most
      DIM_PLAN_APART scenes apart),
@@ -56,7 +57,9 @@ Needs one CUDA card and the CUDA toolkit (nvcc).  It:
      from a graph; then the DIM entry (``oatomobile_torch.entry``): its
      loss on the card against the CPU on the same seeded params (rtol
      ENTRY_RTOL) and its ``capture`` replays against the eager call, bit
-     for bit, over ENTRY_CALLS calls on new inputs;
+     for bit, over ENTRY_CALLS calls on new inputs; then the encoder's
+     GroupNorm kernel (``check_group_norm``, as ``--group-norm`` below)
+     and its launches on the DIM, RIP, CIL and training paths;
  10. holds the batched evaluator on the card against the CPU: two CoRL2017
      Town02 tasks at their configured 100 NPCs, 2 episodes each, through
      ``evaluate_batched`` with the autopilot for 30 steps (per episode
@@ -223,6 +226,20 @@ single-scene learned agents captured against eager (one launch an act for
 the DIMAgent, none for RIP and CIL) and the RIP-WCM CARNOVEL row (no
 launch), and prints the kernel's JSON line.
 
+``--group-norm`` builds the kernels, then runs only the encoder's
+GroupNorm kernel (``check_group_norm``): at each of the encoder's 52
+GroupNorm shapes at 1024 scenes and at 1 (100 x 100 input), and at 1024
+scenes on 32 x 32 and 128 x 128 inputs, its output, mean and rstd
+against PyTorch's (``F.group_norm`` then ``F.relu6`` or the residual add;
+``torch.native_group_norm``) bit for bit, one graph replay against the
+eager call, the encoder's z against the plain path's on the DIM path's
+inputs, the time of the 52 launches of one forward beside their bound,
+the plain version and PyTorch's ``F.group_norm`` + ``F.relu6``; then the
+DIM path as in phase 9 (its launches counted from 0 over the timed
+rollout), and the kernel's launches on the RIP path at 1024 scenes, a CIL
+forward and the training update and loss (``group_norm_launch_counts``);
+it prints the kernel's JSON line.
+
 ``--probe-rounds N`` builds the kernel, then runs only phases 10 and 11
 above (the evaluator's check, the route check and the CARNOVEL runs) N
 times, each round on towns built anew, and stops without the last line.
@@ -268,6 +285,10 @@ DIM_PLAN_ATOL, DIM_PLAN_APART = 1e-4, 3
 # does them (the DIM step's FLOPs less the encoder's: ~7.7 GFLOP at 1024
 # scenes): the planner's bound by that count.
 DIM_PLAN_FROZEN_FLOP = 7.7e9
+# The encoder's GroupNorm kernel: launches of one MobileNetV2 forward, and
+# the steps of the RIP rollout that counts them.
+GROUP_NORM_PER_FORWARD = 52
+GROUP_NORM_COUNT_STEPS = 6
 
 # The evaluator on the card against the CPU: two CoRL2017 Town02 tasks,
 # 2 episodes each; the autopilot's and RIP's horizons and distance limits
@@ -696,12 +717,12 @@ def check_entry() -> None:
 
 
 def drive_dim_path() -> tuple:
-  """The DIM closed loop at full width; returns the splat's and the
-  planner's launches in the timed rollout."""
+  """The DIM closed loop at full width; returns the splat's, the planner's
+  and the encoder's GroupNorm kernel's launches in the timed rollout."""
   import torch  # pylint: disable=import-outside-toplevel
   from oatomobile_torch import bench  # pylint: disable=import-outside-toplevel
   from oatomobile_torch.envs.batched import BatchedEnv  # pylint: disable=import-outside-toplevel
-  from oatomobile_torch.ops import bev_cuda, dim_plan_cuda  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import bev_cuda, dim_plan_cuda, group_norm_cuda  # pylint: disable=import-outside-toplevel
   from oatomobile_torch import graphs  # pylint: disable=import-outside-toplevel
   from oatomobile_torch.utils import profiling  # pylint: disable=import-outside-toplevel
   env = BatchedEnv(TOWN, BATCH, num_vehicles=VEHICLES, route_capacity=1024,
@@ -715,27 +736,31 @@ def drive_dim_path() -> tuple:
   print("dim path: the step captured in {:.3f}s, {} bytes reserved for its "
         "graph's pool (memory_reserved after the capture less before)".format(
             graphs.capture_seconds, graphs.capture_bytes))
-  bev_cuda.launches = dim_plan_cuda.launches = 0
+  bev_cuda.launches = dim_plan_cuda.launches = group_norm_cuda.launches = 0
   profiling.reset()
   t0 = time.perf_counter()
   _, _, s = env.rollout(DIM_STEPS, policy=policy)
   float(s["distance"].sum())  # the fetch waits for the device
   elapsed = time.perf_counter() - t0
-  launches, plan_launches = bev_cuda.launches, dim_plan_cuda.launches
+  launches, plan_launches, norm_launches = (
+      bev_cuda.launches, dim_plan_cuda.launches, group_norm_cuda.launches)
   s = {k: v.cpu() for k, v in s.items()}
   finite = all(bool(torch.isfinite(v.float()).all()) for v in s.values())
   print("dim path: {} x {} steps in {:.3f}s = {:.1f} env steps/s ({:.2f} "
         "ms a step of graph replays; warm-up {} steps {:.1f}s, the capture "
-        "included); bev_splat launches={}, dim_plan launches={} for {} "
-        "steps; stats finite={} distance_mean={:.2f}m episodes={} "
-        "collisions={}".format(
+        "included); bev_splat launches={}, dim_plan launches={}, "
+        "group_norm launches={} for {} steps; stats finite={} "
+        "distance_mean={:.2f}m episodes={} collisions={}".format(
             BATCH, DIM_STEPS, elapsed, BATCH * DIM_STEPS / elapsed,
             1e3 * elapsed / DIM_STEPS, DIM_WARMUP_STEPS, warmup, launches,
-            plan_launches, DIM_STEPS, finite, float(s["distance"].mean()),
-            int(s["episodes"].sum()), int(s["collisions"].sum())))
-  if launches != DIM_STEPS or plan_launches != DIM_STEPS:
-    fail("bev_splat / dim_plan launched {} / {} times in {} DIM steps".format(
-        launches, plan_launches, DIM_STEPS))
+            plan_launches, norm_launches, DIM_STEPS, finite,
+            float(s["distance"].mean()), int(s["episodes"].sum()),
+            int(s["collisions"].sum())))
+  if (launches != DIM_STEPS or plan_launches != DIM_STEPS or
+      norm_launches != GROUP_NORM_PER_FORWARD * DIM_STEPS):
+    fail("bev_splat / dim_plan / group_norm launched {} / {} / {} times in "
+         "{} DIM steps".format(launches, plan_launches, norm_launches,
+                               DIM_STEPS))
   if not finite or not bool((s["distance"] > 0).any()):
     fail("DIM path stats are not finite or no scene moved")
   stages = {k: v for k, v in bench.mark_medians(profiling.snapshot()).items()
@@ -744,7 +769,7 @@ def drive_dim_path() -> tuple:
         "replayed step): {}".format(
             BATCH, ", ".join("{} {:.3f} ms".format(k, v)
                              for k, v in stages.items())))
-  return launches, plan_launches
+  return launches, plan_launches, norm_launches
 
 
 def dim_plan_flop(batch: int, horizon: int, num_steps: int) -> float:
@@ -860,6 +885,266 @@ def check_dim_plan() -> dict:
           "max_abs_err_plain": gaps["plain"],
           "max_abs_err_autograd": gaps["autograd"],
           "equal_to_autograd": auto_equal}
+
+
+def encoder_norms(size: int = 100) -> list:
+  """(C, H, W, epilogue) of the encoder's GroupNorms in order, on a size x
+  size input: one forward of a MobileNetV2 at batch 1 on the CPU records
+  what ``perception._normalise`` is called with."""
+  import torch  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.models import perception  # pylint: disable=import-outside-toplevel
+  calls = []
+  normalise = perception._normalise  # pylint: disable=protected-access
+
+  def record(norm, h, *, relu6=False, residual=None):
+    calls.append((h.shape[1], h.shape[2], h.shape[3], "relu6" if relu6 else
+                  "none" if residual is None else "residual"))
+    return normalise(norm, h, relu6=relu6, residual=residual)
+
+  perception._normalise = record  # pylint: disable=protected-access
+  try:
+    with torch.no_grad():
+      perception.MobileNetV2(device="cpu")(torch.zeros(1, 2, size, size))
+  finally:
+    perception._normalise = normalise  # pylint: disable=protected-access
+  return calls
+
+
+def group_norm_case(batch: int, shape: tuple, seed: int) -> tuple:
+  """(x, weight, bias, relu6, residual) on the card for one of the
+  encoder's GroupNorms: per-channel offsets and spreads, so that some
+  groups' means lie far from 0."""
+  import torch  # pylint: disable=import-outside-toplevel
+  c, h, w, epilogue = shape
+  g = torch.Generator(device="cuda").manual_seed(seed)
+
+  def normal(*size):
+    return torch.randn(*size, generator=g, device="cuda")
+
+  offset, spread = normal(1, c, 1, 1) * 4, normal(1, c, 1, 1).abs() * 2
+  x = normal(batch, c, h, w) * (spread + 0.1) + offset
+  weight, bias = 1 + 0.5 * normal(c), normal(c)
+  residual = normal(batch, c, h, w) if epilogue == "residual" else None
+  return x, weight, bias, epilogue == "relu6", residual
+
+
+def group_norm_bytes(batch: int, shapes: list) -> int:
+  """Bytes the kernel must move for ``shapes`` at ``batch``: x read once,
+  y written once, the residual read once (the 8-float parameters left
+  out)."""
+  return sum(4 * batch * c * h * w * (3 if epilogue == "residual" else 2)
+             for c, h, w, epilogue in shapes)
+
+
+def check_group_norm() -> dict:
+  """The encoder's GroupNorm kernel against PyTorch on the card: at each
+  of the encoder's GroupNorm shapes at BATCH scenes and at 1 (and at BATCH
+  on 32 x 32 and 128 x 128 inputs), its output,
+  mean and rstd bit for bit against ``F.group_norm`` (then ``F.relu6`` or
+  the residual add) and ``torch.native_group_norm``; one graph replay
+  against the eager call; the DIM encoder's z through the kernel against
+  the plain path on the DIM path's inputs; then the time of one forward's
+  launches (CUDA events around 20 back-to-back passes, median of 21) beside
+  their bound, the plain version and ``F.group_norm`` + ``F.relu6``.
+  Returns its line of the kernels JSON."""
+  import torch  # pylint: disable=import-outside-toplevel
+  import torch.nn.functional as F  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch import bench  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.envs.batched import BatchedEnv  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import group_norm_cuda as gn  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.models.perception import GROUP_NORM_EPS  # pylint: disable=import-outside-toplevel
+  shapes = encoder_norms()
+  # The 32 x 32 input of the tests and the trainers' checks reaches 1 x 1
+  # (GroupNorm1dForward's apply), a 128 x 128 input rows past what the
+  # kernel holds in registers: checked too, not timed.
+  small, large = encoder_norms(32), encoder_norms(128)
+  if len(shapes) != GROUP_NORM_PER_FORWARD:
+    fail("the encoder has {} GroupNorms, not {}".format(
+        len(shapes), GROUP_NORM_PER_FORWARD))
+  lib = gn._library()  # pylint: disable=protected-access
+  stream = torch.cuda.current_stream().cuda_stream
+  verdicts = {}
+  for batch, size, checked in ((BATCH, 100, shapes), (1, 100, shapes),
+                               (BATCH, 32, small), (BATCH, 128, large)):
+    apart = []
+    for i, shape in enumerate(checked):
+      x, weight, bias, relu6, residual = group_norm_case(batch, shape, i)
+      c, h, w, epilogue = shape
+      y, mean, rstd = gn.launch(lib, x, weight, bias, GROUP_NORM_EPS,
+                                relu6=relu6, residual=residual,
+                                stream=stream, stats=True)
+      want = gn.group_norm_reference(x, weight, bias, GROUP_NORM_EPS,
+                                     relu6=relu6, residual=residual)
+      _, want_mean, want_rstd = torch.native_group_norm(
+          x, weight, bias, batch, c, h * w, c // gn.GROUP, GROUP_NORM_EPS)
+      torch.cuda.synchronize()
+      got = (int((y != want).sum()), int((mean != want_mean).sum()),
+             int((rstd != want_rstd).sum()))
+      if any(got):
+        apart.append("{}x{}x{} {}: y {} (max {}), mean {}, rstd {}".format(
+            c, h, w, epilogue, got[0], float((y - want).abs().max()),
+            got[1], got[2]))
+    key = "B={} input {}".format(batch, size)
+    verdicts[key] = len(checked) - len(apart)
+    print("check group_norm {}: output, mean and rstd equal to PyTorch's "
+          "bit for bit at {} of {} shapes (rows of {} to {} floats){}".format(
+              key, verdicts[key], len(checked),
+              min(8 * h * w for _, h, w, _ in checked),
+              max(8 * h * w for _, h, w, _ in checked),
+              "; differing elements: " + "; ".join(apart) if apart else ""))
+  # One launch captured in a CUDA graph, replayed on new inputs.
+  static = list(group_norm_case(64, shapes[3], 100))
+  gn.group_norm(static[0], static[1], static[2], GROUP_NORM_EPS,
+                relu6=static[3], residual=static[4])
+  torch.cuda.synchronize()
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    captured = gn.group_norm(static[0], static[1], static[2], GROUP_NORM_EPS,
+                             relu6=static[3], residual=static[4])
+  fresh = group_norm_case(64, shapes[3], 101)
+  static[0].copy_(fresh[0])
+  graph.replay()
+  eager = gn.group_norm(fresh[0], static[1], static[2], GROUP_NORM_EPS,
+                        relu6=static[3], residual=static[4])
+  torch.cuda.synchronize()
+  replay_equal = torch.equal(captured, eager)
+  del graph
+  # The DIM encoder's z through the kernel against the plain path.
+  env = BatchedEnv(TOWN, BATCH, num_vehicles=VEHICLES, route_capacity=1024,
+                   seed=0, device="cuda")
+  env.rollout(20)
+  policy = bench.dim_policy(100, "float32", device="cuda")
+  obs = policy.observe(env.params, env.state)
+  gn.launches = 0
+  z = policy.encode(obs)
+  launched = gn.launches
+  with torch.enable_grad():  # frozen weights: no graph, the plain path
+    z_plain = policy.model.params_z(**obs.context)
+  torch.cuda.synchronize()
+  z_equal = torch.equal(z, z_plain)
+  print("check group_norm: graph replay equal to the eager call {}; DIM "
+        "encoder z at B={} through the kernel ({} launches) equal to the "
+        "plain path's bit for bit {} (max abs diff {})".format(
+            replay_equal, BATCH, launched, z_equal,
+            float((z - z_plain).abs().max())))
+  if (sum(verdicts.values()) != 3 * len(shapes) + len(large) or
+      not replay_equal or not z_equal or
+      launched != GROUP_NORM_PER_FORWARD):
+    fail("the group_norm kernel disagrees with PyTorch's GroupNorm")
+  del env, policy, obs, z, z_plain
+
+  cases = [group_norm_case(BATCH, shape, i) for i, shape in enumerate(shapes)]
+
+  def kernel_pass():
+    for x, weight, bias, relu6, residual in cases:
+      gn.group_norm(x, weight, bias, GROUP_NORM_EPS, relu6=relu6,
+                    residual=residual)
+
+  def plain_pass():
+    for x, weight, bias, relu6, residual in cases:
+      gn.group_norm_reference(x, weight, bias, GROUP_NORM_EPS, relu6=relu6,
+                              residual=residual)
+
+  def library_pass():
+    for x, weight, bias, relu6, _ in cases:
+      y = F.group_norm(x, x.shape[1] // gn.GROUP, weight, bias,
+                       GROUP_NORM_EPS)
+      if relu6:
+        F.relu6(y)
+
+  before = gn.launches
+  ms = cuda_ms(kernel_pass, calls=20)
+  gn.launches = before
+  plain_ms = cuda_ms(plain_pass, calls=20)
+  library_ms = cuda_ms(library_pass, calls=20)
+  nbytes = group_norm_bytes(BATCH, shapes)
+  bound_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+  regimes = {}
+  for (c, h, w, _), case in zip(shapes, cases):
+    regime = "one warp a row" if 8 * h * w < 512 else "512 threads a row"
+    regimes.setdefault(regime, []).append(case)
+  split = {}
+  for regime, sub in regimes.items():
+    def sub_pass(sub=sub):
+      for x, weight, bias, relu6, residual in sub:
+        gn.group_norm(x, weight, bias, GROUP_NORM_EPS, relu6=relu6,
+                      residual=residual)
+    split[regime] = cuda_ms(sub_pass, calls=20)
+  gn.launches = before
+  print("timing group_norm B={} (the encoder's {} GroupNorms, one forward): "
+        "kernel {:.4f} ms ({}), plain version {:.4f} ms, F.group_norm + "
+        "F.relu6 {:.4f} ms; bound {:.4f} ms ({:.3f} GB at 3.35 TB/s); "
+        "{:.1f}% of its bound".format(
+            BATCH, len(shapes), ms, ", ".join(
+                "{} {:.4f} ms".format(k, v) for k, v in split.items()),
+            plain_ms, library_ms, bound_ms, nbytes / 1e9,
+            100 * bound_ms / ms))
+  return {"name": "group_norm", "status": "new (replaces no Pallas kernel)",
+          "route": "cuda", "source": "oatomobile_torch/csrc/group_norm.cu",
+          "replaces": None, "ms": ms, "plain_ms": plain_ms,
+          "bound_ms": bound_ms, "bound_by": "bytes",
+          "library_ms": library_ms, "ms_by_regime": split,
+          "shapes_equal": verdicts, "replay_equal": replay_equal,
+          "z_equal": z_equal}
+
+
+def group_norm_launch_counts(dim_launches: int) -> dict:
+  """The GroupNorm kernel's launches a step or a call: the DIM policy's
+  captured step (``dim_launches``, those of ``drive_dim_path``'s timed
+  rollout), the RIP-WCM policy's (GROUP_NORM_COUNT_STEPS steps at BATCH
+  Town01 scenes, after a warm-up that captures the step), a CIL model's
+  forward under no_grad, one DIM training update (autograd on: none) and
+  the trainer's no-grad evaluation loss, each counted from 0; fails where
+  they are not 52 a forward."""
+  import torch  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch import bench  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch import rng as rng_lib  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.baselines.learned.dim import train as dim_train  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.baselines.learned.rip.policy import make_rip_policy  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.envs.batched import BatchedEnv  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.models import BehaviouralModel, ImitativeModel  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import group_norm_cuda as gn  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.parallel import dp  # pylint: disable=import-outside-toplevel
+  counts = {"dim_step": dim_launches / DIM_STEPS}
+  policy = make_rip_policy(rip_ensemble(), algorithm="WCM")
+  env = BatchedEnv(TOWN, BATCH, num_vehicles=VEHICLES, route_capacity=1024,
+                   seed=0, device="cuda")
+  env.rollout(DIM_WARMUP_STEPS, policy=policy)
+  gn.launches = 0
+  _, _, s = env.rollout(GROUP_NORM_COUNT_STEPS, policy=policy)
+  float(s["distance"].sum())
+  counts["rip_step"] = gn.launches / GROUP_NORM_COUNT_STEPS
+  del env, policy
+  cil = BehaviouralModel((40, 2), (100, 100), device="cuda")
+  context = {"visual_features": torch.rand(2, 2, 100, 100, device="cuda"),
+             **{k: torch.zeros(2, n, device="cuda") for k, n in (
+                 ("velocity", 3), ("is_at_traffic_light", 1),
+                 ("traffic_light_state", 1), ("mode", 1))}}
+  gn.launches = 0
+  with torch.no_grad():
+    cil(**context)
+  counts["cil_forward"] = gn.launches
+  model = ImitativeModel((4, 2), UPDATE_INPUT, device="cuda")
+  loss_fn = dim_train.make_loss_fn()
+  state = dp.TrainState.create(model, dp.adam(model, 1e-3),
+                               rng_lib.PRNGKey(7, "cuda"))
+  batch = update_batch(8)
+  gn.launches = 0
+  dp.make_update_fn(loss_fn)(state, batch)
+  counts["train_update"] = gn.launches
+  gn.launches = 0
+  dim_train.eval_loss(loss_fn, model, batch)
+  counts["train_eval_loss"] = gn.launches
+  torch.cuda.synchronize()
+  want = {"dim_step": GROUP_NORM_PER_FORWARD,
+          "rip_step": RIP_MEMBERS * GROUP_NORM_PER_FORWARD,
+          "cil_forward": GROUP_NORM_PER_FORWARD, "train_update": 0,
+          "train_eval_loss": GROUP_NORM_PER_FORWARD}
+  print("group_norm launches: {} (want {})".format(counts, want))
+  if counts != want:
+    fail("the group_norm kernel launched {} times, not {}".format(counts,
+                                                                  want))
+  return counts
 
 
 def _episodes(results) -> list:
@@ -2845,6 +3130,10 @@ def main() -> None:
                       help="run only the DIM planner kernel's check and "
                       "timing and its launches on the DIM path, the "
                       "single-scene learned agents and a RIP row, and stop")
+  parser.add_argument("--group-norm", action="store_true",
+                      help="run only the encoder's GroupNorm kernel's check "
+                      "and timing and its launches on the DIM, RIP, CIL and "
+                      "training paths, and stop")
   args = parser.parse_args()
   try:
     import torch  # pylint: disable=import-outside-toplevel
@@ -2856,7 +3145,7 @@ def main() -> None:
   try:
     from oatomobile_torch import graphs  # pylint: disable=import-outside-toplevel
     from oatomobile_torch.envs.batched import BatchedEnv  # pylint: disable=import-outside-toplevel
-    from oatomobile_torch.ops import bev, bev_cuda, dim_plan_cuda  # pylint: disable=import-outside-toplevel
+    from oatomobile_torch.ops import bev, bev_cuda, dim_plan_cuda, group_norm_cuda  # pylint: disable=import-outside-toplevel
   except ImportError as exc:
     fail("oatomobile_torch not found next to this script ({})".format(exc))
   if "jax" in sys.modules or "oatomobile_tpu" in sys.modules:
@@ -2884,6 +3173,11 @@ def main() -> None:
   print("build: dim_plan {:.1f}s (nvcc {:.1f}s)".format(
       time.perf_counter() - t0, dim_plan_cuda.build_seconds))
   print_build("dim_plan", dim_plan_cuda, dim_plan_cuda.LIBRARY)
+  t0 = time.perf_counter()
+  group_norm_cuda.build()
+  print("build: group_norm {:.1f}s (nvcc {:.1f}s)".format(
+      time.perf_counter() - t0, group_norm_cuda.build_seconds))
+  print_build("group_norm", group_norm_cuda, group_norm_cuda.LIBRARY)
   prevs = {}
   for source in args.prev_splat:
     name, library, launch = prev_splat(source, bev_cuda)
@@ -2900,6 +3194,12 @@ def main() -> None:
                    make_rip_policy(rip_ensemble(), algorithm="WCM"),
                    CARNOVEL_RIP_HORIZON)
     kernel["launches_eval_rip"] = 0
+    print("total: {:.1f}s".format(time.perf_counter() - t_start))
+    print(json.dumps({"kernels": [kernel]}))
+    return
+  if args.group_norm:
+    kernel = check_group_norm()
+    kernel["launches"] = group_norm_launch_counts(drive_dim_path()[2])
     print("total: {:.1f}s".format(time.perf_counter() - t_start))
     print(json.dumps({"kernels": [kernel]}))
     return
@@ -3046,13 +3346,19 @@ def main() -> None:
   check_dim_card_against_cpu()
 
   # -- 8. The DIM path ------------------------------------------------------------
-  launches_dim, plan_launches_dim = drive_dim_path()
+  launches_dim, plan_launches_dim, norm_launches_dim = drive_dim_path()
 
   lap("DIM check and path")
 
   # -- 8a. The DIM planner kernel against its plain version and autograd ------
   dim_plan_kernel = check_dim_plan()
   lap("DIM planner kernel")
+
+  # -- 8c. The encoder's GroupNorm kernel against PyTorch ----------------------
+  group_norm_kernel = check_group_norm()
+  group_norm_kernel["launches"] = group_norm_launch_counts(
+      norm_launches_dim)
+  lap("GroupNorm kernel")
 
   # -- 8b. The DIM entry, card against CPU and captured against eager ---------
   check_entry()
@@ -3151,7 +3457,7 @@ def main() -> None:
       "fill_ms": fill_ms,
   }, dict(dim_plan_kernel, launches_dim=plan_launches_dim,
           launches_captured_agents=plan_launches_agents,
-          launches_eval_rip=0)]
+          launches_eval_rip=0), group_norm_kernel]
   print("phase seconds: {}".format(", ".join(
       "{} {:.1f}".format(phase, end - start)
       for (_, start), (phase, end) in zip(marks, marks[1:]))))

@@ -39,13 +39,13 @@ import time
 
 import torch
 
-from oatomobile_torch.ops import bev_cuda, dim_plan_cuda
+from oatomobile_torch.ops import bev_cuda, dim_plan_cuda, group_norm_cuda
 from oatomobile_torch.utils import profiling
 
 # Eager calls on the side stream before the capture.
 WARMUP_STEPS = 2
 # The modules whose integer ``launches`` counts their kernel's launches.
-KERNEL_MODULES = (bev_cuda, dim_plan_cuda)
+KERNEL_MODULES = (bev_cuda, dim_plan_cuda, group_norm_cuda)
 
 # Captures since import (or since the caller last reset them), the host
 # seconds they took and the bytes the card reserved for them

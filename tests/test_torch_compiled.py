@@ -18,12 +18,13 @@ import torch
 
 from oatomobile_torch import graphs
 from oatomobile_torch.baselines.learned.dim.policy import make_dim_policy
+from oatomobile_torch.baselines.learned.rip.policy import make_rip_policy
 from oatomobile_torch.benchmarks import batched_eval as teval
 from oatomobile_torch.benchmarks.corl2017.benchmark import _TASKS
 from oatomobile_torch.datasets.carla import _resize_quantize
 from oatomobile_torch.envs.batched import BatchedEnv
 from oatomobile_torch.models import ImitativeModel
-from oatomobile_torch.ops import bev_cuda, dim_plan_cuda
+from oatomobile_torch.ops import bev_cuda, dim_plan_cuda, group_norm_cuda
 from oatomobile_torch.sim import autopilot_policy
 from oatomobile_torch.sim.types import scene_state_to_numpy
 from oatomobile_tpu.envs.batched import BatchedEnv as JaxBatchedEnv
@@ -123,11 +124,13 @@ class FakeCapturedStep(graphs.CapturedStep):
 
 @pytest.fixture
 def fake_card(monkeypatch):
-  """The fake capture in place of the real one, and splat and planner
-  wrappers that count their CPU calls as the card's wrappers count
-  launches."""
+  """The fake capture in place of the real one, and splat, planner and
+  GroupNorm wrappers that count their CPU calls as the card's wrappers
+  count launches (the encoder routes float32 no-grad forwards to the
+  GroupNorm wrapper as it does on the card)."""
   reference = bev_cuda.splat_lidar_batch_reference
   plan = dim_plan_cuda.plan
+  group_norm = group_norm_cuda.group_norm
 
   def counting_splat(*inputs):
     bev_cuda.launches += 1
@@ -137,11 +140,21 @@ def fake_card(monkeypatch):
     dim_plan_cuda.launches += 1
     return plan(*args, **kwargs)
 
+  def counting_group_norm(*args, **kwargs):
+    group_norm_cuda.launches += 1
+    return group_norm(*args, **kwargs)
+
+  def engages_on_cpu(x):
+    return x.dtype == torch.float32 and not torch.is_grad_enabled()
+
   monkeypatch.setattr(graphs, "CapturedStep", FakeCapturedStep)
   monkeypatch.setattr(bev_cuda, "splat_lidar_batch", counting_splat)
   monkeypatch.setattr(bev_cuda, "launches", 0)
   monkeypatch.setattr(dim_plan_cuda, "plan", counting_plan)
   monkeypatch.setattr(dim_plan_cuda, "launches", 0)
+  monkeypatch.setattr(group_norm_cuda, "group_norm", counting_group_norm)
+  monkeypatch.setattr(group_norm_cuda, "engages", engages_on_cpu)
+  monkeypatch.setattr(group_norm_cuda, "launches", 0)
   FakeCapturedStep.instances = []
   return FakeCapturedStep.instances
 
@@ -224,10 +237,31 @@ def test_dim_policy_rollout_equals_eager(fake_card):
   assert len(fake_card) == 1 and fake_card[0].captured
   assert bev_cuda.launches == 5  # the policy's LIDAR, once a step
   assert dim_plan_cuda.launches == 5  # the plan, once a step
+  assert group_norm_cuda.launches == 5 * 52  # the encoder's norms
   want = _run(eager, False, 5, policy=policy())
   for g, w in zip(got, want):
     assert_trees_equal(g, w)
   assert (got[2]["distance"] > 0).all()
+
+
+def test_rip_policy_rollout_equals_eager(fake_card):
+  # K = 4 narrow DIMs (32x32 input) planning 2 Adam steps over autograd.
+  def policy():
+    return make_rip_policy([ImitativeModel(
+        (4, 2), (32, 32), generator=torch.Generator().manual_seed(k),
+        device="cpu") for k in range(4)], num_plan_steps=2)
+
+  kwargs = dict(num_vehicles=4, seed=2)
+  runner, eager = (BatchedEnv(TOWN, 2, device="cpu", **kwargs)
+                   for _ in range(2))
+  got = _run(runner, True, 3, policy=policy())
+  assert len(fake_card) == 1 and fake_card[0].captured
+  assert bev_cuda.launches == 3
+  assert dim_plan_cuda.launches == 0  # RIP plans over autograd
+  assert group_norm_cuda.launches == 3 * 4 * 52  # four encoders a step
+  want = _run(eager, False, 3, policy=policy())
+  for g, w in zip(got, want):
+    assert_trees_equal(g, w)
 
 
 # -- against the JAX package's compiled rollout ------------------------------

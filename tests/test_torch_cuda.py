@@ -308,3 +308,137 @@ def test_dim_plan_kernel_refuses_what_it_does_not_take(card):
       1.84, 2.3, *dim_plan_cuda._host_tables(20), out.data_ptr(),  # pylint: disable=protected-access
       best.data_ptr(), 8, 4, 20, torch.cuda.current_stream().cuda_stream)
   assert err != 0
+
+
+# -- The encoder's GroupNorm kernel ------------------------------------------
+
+
+@pytest.mark.parametrize("batch,size", [(1024, 100), (1, 100), (64, 32),
+                                        (64, 128)])
+def test_group_norm_kernel_equals_pytorch_at_every_encoder_shape(
+    card, batch, size):
+  """Both thread regimes (rows of 128 to 20,000 floats at 100 x 100; the
+  32 x 32 input reaches 1 x 1 maps; the 128 x 128 input's rows of 32,768
+  floats are read twice): output, mean and rstd equal to F.group_norm
+  (then F.relu6 or the residual add) and torch.native_group_norm bit for
+  bit.  The shapes and inputs are chip_smoke.py's."""
+  import chip_smoke  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import group_norm_cuda as gn  # pylint: disable=import-outside-toplevel
+  eps = 1e-6
+  lib = gn._library()  # pylint: disable=protected-access
+  apart = []
+  shapes = chip_smoke.encoder_norms(size)
+  assert len(shapes) == chip_smoke.GROUP_NORM_PER_FORWARD
+  for i, shape in enumerate(shapes):
+    x, weight, bias, relu6, residual = chip_smoke.group_norm_case(batch,
+                                                                  shape, i)
+    c, h, w, _ = shape
+    y, mean, rstd = gn.launch(lib, x, weight, bias, eps, relu6=relu6,
+                              residual=residual,
+                              stream=torch.cuda.current_stream().cuda_stream,
+                              stats=True)
+    want = gn.group_norm_reference(x, weight, bias, eps, relu6=relu6,
+                                   residual=residual)
+    _, want_mean, want_rstd = torch.native_group_norm(
+        x, weight, bias, batch, c, h * w, c // gn.GROUP, eps)
+    if not (torch.equal(y, want) and torch.equal(mean, want_mean) and
+            torch.equal(rstd, want_rstd)):
+      apart.append(shape)
+  assert not apart
+
+
+def test_encoder_z_equals_the_reference_bit_for_bit(card):
+  """The DIM model's z through the kernel (52 launches) against the
+  benchmark's plain reference model on the same seeded weights, their
+  GroupNorms' scales and biases drawn anew."""
+  from oatomobile_torch.models import ImitativeModel  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import group_norm_cuda as gn  # pylint: disable=import-outside-toplevel
+  from perfbench import weights as weights_lib  # pylint: disable=import-outside-toplevel
+  from perfbench.reference.models.dim import ImitativeModel as RefModel  # pylint: disable=import-outside-toplevel
+  weights = weights_lib.draw(RefModel(device="meta"), 2**31 + 5, card)
+  g = torch.Generator(device=card).manual_seed(5)
+  for name, w in weights.items():
+    if "norm" in name:
+      w.copy_((1 if name.endswith("weight") else 0) +
+              0.5 * torch.randn(w.shape, generator=g, device=card))
+  program = weights_lib.load(ImitativeModel(device="meta"), weights, card)
+  reference = weights_lib.load(RefModel(device="meta"), weights, card)
+  context = {"visual_features": torch.rand(1024, 2, 100, 100, generator=g,
+                                           device=card),
+             "velocity": torch.randn(1024, 3, generator=g, device=card),
+             "is_at_traffic_light": torch.zeros(1024, 1, device=card),
+             "traffic_light_state": torch.ones(1024, 1, device=card)}
+  flags = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  try:
+    with torch.no_grad():
+      before = gn.launches
+      z = program.params_z(**context)
+      launched = gn.launches - before
+      want = reference.params_z(**context)
+  finally:
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = flags
+  assert launched == 52
+  assert torch.equal(z, want)
+
+
+def test_group_norm_graph_replay_matches_eager_call(card):
+  import chip_smoke  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import group_norm_cuda as gn  # pylint: disable=import-outside-toplevel
+  shape = (24, 25, 25, "residual")
+  static = list(chip_smoke.group_norm_case(64, shape, 1))
+  args = dict(relu6=static[3], residual=static[4])
+  gn.group_norm(*static[:3], 1e-6, **args)
+  torch.cuda.synchronize()
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    captured = gn.group_norm(*static[:3], 1e-6, **args)
+  static[0].copy_(chip_smoke.group_norm_case(64, shape, 2)[0])
+  graph.replay()
+  eager = gn.group_norm(*static[:3], 1e-6, **args)
+  torch.cuda.synchronize()
+  assert torch.equal(captured, eager)
+
+
+def test_group_norm_launches_only_without_autograd(card):
+  from oatomobile_torch.baselines.learned.dim.policy import encoder_copy  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.models import ImitativeModel  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import group_norm_cuda as gn  # pylint: disable=import-outside-toplevel
+  model = ImitativeModel(device=card).requires_grad_(False)
+  x = torch.rand(4, 2, 100, 100, device=card)
+  before = gn.launches
+  with torch.no_grad():
+    model.encoder(x)
+  assert gn.launches == before + 52
+  model.encoder(x)  # autograd on: the plain path
+  with torch.no_grad():
+    encoder_copy(model, "bfloat16").encoder(x.to(torch.bfloat16))
+  assert gn.launches == before + 52
+  with torch.no_grad():  # rows past 20,480 floats: the kernel still
+    model.encoder(torch.rand(2, 2, 128, 128, device=card))
+  assert gn.launches == before + 104
+
+
+def test_group_norm_kernel_refuses_what_it_does_not_take(card):
+  from oatomobile_torch.ops import group_norm_cuda as gn  # pylint: disable=import-outside-toplevel
+  x = torch.randn(2, 16, 5, 5, device=card)
+  w, b = torch.ones(16, device=card), torch.zeros(16, device=card)
+  before = gn.launches
+  with pytest.raises(ValueError):
+    gn.group_norm(x.transpose(2, 3), w, b, 1e-6)
+  with pytest.raises(ValueError):
+    gn.group_norm(x[:, :12].contiguous(), w[:12], b[:12], 1e-6)
+  with pytest.raises(TypeError):
+    gn.group_norm(x.double(), w, b, 1e-6)
+  with pytest.raises(ValueError):
+    gn.group_norm(x, w.cpu(), b, 1e-6)
+  assert gn.launches == before
+  # The entry point refuses the residual epilogue without a residual.
+  y = torch.empty_like(x)
+  err = gn._library().group_norm_launch(  # pylint: disable=protected-access
+      x.data_ptr(), w.data_ptr(), b.data_ptr(), None, y.data_ptr(), None,
+      None, 4, 2, 25, 1e-6, 2, torch.cuda.current_stream().cuda_stream)
+  assert err != 0
