@@ -505,13 +505,9 @@ def prev_splat(source: str, bev_cuda):
   from ``source``, the launcher called like ``splat_lidar_batch``."""
   import torch  # pylint: disable=import-outside-toplevel
   name = os.path.splitext(os.path.basename(source))[0]
-  library = os.path.join(os.path.dirname(bev_cuda.LIBRARY),
+  library = os.path.join(os.path.dirname(bev_cuda.KERNEL.path),
                          "libprev_{}.so".format(name))
-  lib = ctypes.CDLL(bev_cuda.build(source, library))
-  ptr, i32 = ctypes.c_void_p, ctypes.c_int
-  lib.bev_splat_launch.argtypes = [ptr, ptr, i32, ptr, i32, ptr, i32, ptr,
-                                   ptr, ptr, ptr, i32, ptr]
-  lib.bev_splat_launch.restype = i32
+  lib = bev_cuda.declare(ctypes.CDLL(bev_cuda.KERNEL.build(source, library)))
 
   def launch(hero, walls, roads, boxes):
     centers, counts, ground = bev_cuda._tables(hero.device)  # pylint: disable=protected-access
@@ -529,11 +525,11 @@ def prev_splat(source: str, bev_cuda):
   return name, library, launch
 
 
-def print_build(name: str, wrapper, library: str) -> None:
-  """What ptxas said in ``wrapper``'s last build, and the loops of the
-  SASS."""
+def print_build(name: str, kernel, library: str) -> None:
+  """What ptxas said in ``kernel``'s last build (a ``native.nvcc.Kernel``),
+  and the loops of the SASS."""
   from oatomobile_torch import sass  # pylint: disable=import-outside-toplevel
-  for line in wrapper.build_log.splitlines():
+  for line in kernel.build_log.splitlines():
     if "registers" in line or "bytes stack" in line:
       print("ptxas {}: {}".format(name, line.strip()))
   try:
@@ -736,14 +732,15 @@ def drive_dim_path() -> tuple:
   print("dim path: the step captured in {:.3f}s, {} bytes reserved for its "
         "graph's pool (memory_reserved after the capture less before)".format(
             graphs.capture_seconds, graphs.capture_bytes))
-  bev_cuda.launches = dim_plan_cuda.launches = group_norm_cuda.launches = 0
+  kernels = (bev_cuda.KERNEL, dim_plan_cuda.KERNEL, group_norm_cuda.KERNEL)
+  for kernel in kernels:
+    kernel.launches = 0
   profiling.reset()
   t0 = time.perf_counter()
   _, _, s = env.rollout(DIM_STEPS, policy=policy)
   float(s["distance"].sum())  # the fetch waits for the device
   elapsed = time.perf_counter() - t0
-  launches, plan_launches, norm_launches = (
-      bev_cuda.launches, dim_plan_cuda.launches, group_norm_cuda.launches)
+  launches, plan_launches, norm_launches = (k.launches for k in kernels)
   s = {k: v.cpu() for k, v in s.items()}
   finite = all(bool(torch.isfinite(v.float()).all()) for v in s.values())
   print("dim path: {} x {} steps in {:.3f}s = {:.1f} env steps/s ({:.2f} "
@@ -961,7 +958,7 @@ def check_group_norm() -> dict:
   if len(shapes) != GROUP_NORM_PER_FORWARD:
     fail("the encoder has {} GroupNorms, not {}".format(
         len(shapes), GROUP_NORM_PER_FORWARD))
-  lib = gn._library()  # pylint: disable=protected-access
+  lib = gn.KERNEL.library()
   stream = torch.cuda.current_stream().cuda_stream
   verdicts = {}
   for batch, size, checked in ((BATCH, 100, shapes), (1, 100, shapes),
@@ -1015,9 +1012,9 @@ def check_group_norm() -> dict:
   env.rollout(20)
   policy = bench.dim_policy(100, "float32", device="cuda")
   obs = policy.observe(env.params, env.state)
-  gn.launches = 0
+  gn.KERNEL.launches = 0
   z = policy.encode(obs)
-  launched = gn.launches
+  launched = gn.KERNEL.launches
   with torch.enable_grad():  # frozen weights: no graph, the plain path
     z_plain = policy.model.params_z(**obs.context)
   torch.cuda.synchronize()
@@ -1052,9 +1049,9 @@ def check_group_norm() -> dict:
       if relu6:
         F.relu6(y)
 
-  before = gn.launches
+  before = gn.KERNEL.launches
   ms = cuda_ms(kernel_pass, calls=20)
-  gn.launches = before
+  gn.KERNEL.launches = before
   plain_ms = cuda_ms(plain_pass, calls=20)
   library_ms = cuda_ms(library_pass, calls=20)
   nbytes = group_norm_bytes(BATCH, shapes)
@@ -1070,7 +1067,7 @@ def check_group_norm() -> dict:
         gn.group_norm(x, weight, bias, GROUP_NORM_EPS, relu6=relu6,
                       residual=residual)
     split[regime] = cuda_ms(sub_pass, calls=20)
-  gn.launches = before
+  gn.KERNEL.launches = before
   print("timing group_norm B={} (the encoder's {} GroupNorms, one forward): "
         "kernel {:.4f} ms ({}), plain version {:.4f} ms, F.group_norm + "
         "F.relu6 {:.4f} ms; bound {:.4f} ms ({:.3f} GB at 3.35 TB/s); "
@@ -1110,31 +1107,31 @@ def group_norm_launch_counts(dim_launches: int) -> dict:
   env = BatchedEnv(TOWN, BATCH, num_vehicles=VEHICLES, route_capacity=1024,
                    seed=0, device="cuda")
   env.rollout(DIM_WARMUP_STEPS, policy=policy)
-  gn.launches = 0
+  gn.KERNEL.launches = 0
   _, _, s = env.rollout(GROUP_NORM_COUNT_STEPS, policy=policy)
   float(s["distance"].sum())
-  counts["rip_step"] = gn.launches / GROUP_NORM_COUNT_STEPS
+  counts["rip_step"] = gn.KERNEL.launches / GROUP_NORM_COUNT_STEPS
   del env, policy
   cil = BehaviouralModel((40, 2), (100, 100), device="cuda")
   context = {"visual_features": torch.rand(2, 2, 100, 100, device="cuda"),
              **{k: torch.zeros(2, n, device="cuda") for k, n in (
                  ("velocity", 3), ("is_at_traffic_light", 1),
                  ("traffic_light_state", 1), ("mode", 1))}}
-  gn.launches = 0
+  gn.KERNEL.launches = 0
   with torch.no_grad():
     cil(**context)
-  counts["cil_forward"] = gn.launches
+  counts["cil_forward"] = gn.KERNEL.launches
   model = ImitativeModel((4, 2), UPDATE_INPUT, device="cuda")
   loss_fn = dim_train.make_loss_fn()
   state = dp.TrainState.create(model, dp.adam(model, 1e-3),
                                rng_lib.PRNGKey(7, "cuda"))
   batch = update_batch(8)
-  gn.launches = 0
+  gn.KERNEL.launches = 0
   dp.make_update_fn(loss_fn)(state, batch)
-  counts["train_update"] = gn.launches
-  gn.launches = 0
+  counts["train_update"] = gn.KERNEL.launches
+  gn.KERNEL.launches = 0
   dim_train.eval_loss(loss_fn, model, batch)
-  counts["train_eval_loss"] = gn.launches
+  counts["train_eval_loss"] = gn.KERNEL.launches
   torch.cuda.synchronize()
   want = {"dim_step": GROUP_NORM_PER_FORWARD,
           "rip_step": RIP_MEMBERS * GROUP_NORM_PER_FORWARD,
@@ -1218,15 +1215,15 @@ def drive_carnovel(name: str, policy, horizon: int, device="cuda") -> dict:
   evaluate_batched(next(iter(groups.values())), policy_fn=policy, horizon=2,
                    device=device)
   results, seconds, launches = {}, {}, {}
-  plan_launches = dim_plan_cuda.launches
+  plan_launches = dim_plan_cuda.KERNEL.launches
   for town, tasks in groups.items():
-    bev_cuda.launches = 0
+    bev_cuda.KERNEL.launches = 0
     t0 = time.perf_counter()
     results.update(evaluate_batched(tasks, policy_fn=policy,
                                     horizon=horizon, device=device))
     seconds[town] = time.perf_counter() - t0
-    launches[town] = bev_cuda.launches
-  plan_launches = dim_plan_cuda.launches - plan_launches
+    launches[town] = bev_cuda.KERNEL.launches
+  plan_launches = dim_plan_cuda.KERNEL.launches - plan_launches
   total = sum(seconds.values())
   summary = summarize(results)
   finite = all(torch.isfinite(torch.tensor(float(r["distance"])))
@@ -1389,11 +1386,11 @@ def drive_single_scene(device="cuda", steps: int = SINGLE_SCENE_STEPS) -> int:
   sensors = sorted(env.simulator.sensor_suite.sensors)
   metrics = [StepsMetric(), CollisionsMetric(), LaneInvasionsMetric(),
              DistanceMetric()]
-  bev_cuda.launches = 0
+  bev_cuda.KERNEL.launches = 0
   t0 = time.perf_counter()
   results = EnvironmentLoop(AutopilotAgent, env, metrics=metrics).run()
   elapsed = time.perf_counter() - t0
-  launches = bev_cuda.launches
+  launches = bev_cuda.KERNEL.launches
   print("single scene {} (Town03, 100 NPCs, sensors {}): AutopilotAgent "
         "through EnvironmentLoop, {} steps in {:.3f}s = {:.1f} steps/s "
         "(reset and its 50 warm-up steps included); bev_splat launches={}; "
@@ -1499,7 +1496,7 @@ def agent_run(make, eager: bool, steps: int) -> dict:
   try:
     env = CARNOVEL(device="cuda").load(SINGLE_SCENE_TASK)
     env.seed(0)
-    bev_cuda.launches = dim_plan_cuda.launches = 0
+    bev_cuda.KERNEL.launches = dim_plan_cuda.KERNEL.launches = 0
     t0 = time.perf_counter()
     obs = env.reset()
     trace = [{k: np.array(v) for k, v in obs.items()}]
@@ -1520,7 +1517,8 @@ def agent_run(make, eager: bool, steps: int) -> dict:
         break
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches, plan_launches = bev_cuda.launches, dim_plan_cuda.launches
+    launches = bev_cuda.KERNEL.launches
+    plan_launches = dim_plan_cuda.KERNEL.launches
     env.close()
   finally:
     graphs.CapturedStep = captured_step
@@ -1607,11 +1605,11 @@ def check_collect_card_against_cpu(workdir: str) -> None:
   dirs, counts = {}, {}
   for dev in ("cpu", "cuda"):
     dirs[dev] = os.path.join(workdir, "collect_check_" + dev)
-    bev_cuda.launches = 0
+    bev_cuda.KERNEL.launches = 0
     counts[dev] = CARLADataset.collect_packed("Town02", dirs[dev],
                                               device=dev, device_pack=True,
                                               **COLLECT_CHECK)
-  launches = bev_cuda.launches  # the card's collection ran last
+  launches = bev_cuda.KERNEL.launches  # the card's collection ran last
   load = lambda dev, key: np.load(os.path.join(dirs[dev], key + ".npy"))  # pylint: disable=unnecessary-lambda-assignment
   lidar = np.abs(load("cpu", "lidar").astype(int) -
                  load("cuda", "lidar").astype(int))
@@ -1876,12 +1874,12 @@ def drive_training_path(workdir: str) -> int:
   from oatomobile_torch.parallel import dp  # pylint: disable=import-outside-toplevel
 
   pack = os.path.join(workdir, "pack")
-  bev_cuda.launches = 0
+  bev_cuda.KERNEL.launches = 0
   t0 = time.perf_counter()
   samples = CARLADataset.collect_packed(TRAIN_TOWN, pack, device="cuda",
                                         **TRAIN_COLLECT)
   seconds = time.perf_counter() - t0
-  launches = bev_cuda.launches
+  launches = bev_cuda.KERNEL.launches
   nbytes = sum(os.path.getsize(os.path.join(pack, f))
                for f in os.listdir(pack))
   env_steps = TRAIN_COLLECT["num_episodes"] * TRAIN_COLLECT["num_steps"]
@@ -1994,7 +1992,7 @@ def drive_experiments(workdir: str) -> dict:
   launches = {}
   for suite in ("carnovel", "corl2017"):
     for name in EXPERIMENT_POLICIES:
-      bev_cuda.launches = 0
+      bev_cuda.KERNEL.launches = 0
       t0 = time.perf_counter()
       pipeline.evaluate(
           out=out, carnovel_policies=[name] if suite == "carnovel" else [],
@@ -2003,7 +2001,7 @@ def drive_experiments(workdir: str) -> dict:
           horizon=EXPERIMENT_HORIZON, device="cuda")
       seconds = time.perf_counter() - t0
       row = "{}_{}".format(suite, name)
-      launches[row] = bev_cuda.launches
+      launches[row] = bev_cuda.KERNEL.launches
       env_steps = len(suites[suite]) * EXPERIMENT_HORIZON
       print("experiments {}: {} tasks x {} steps in {:.3f}s (scene set-up "
             "and captures included) = {:.1f} env steps/s; bev_splat "
@@ -2037,13 +2035,13 @@ def drive_experiments(workdir: str) -> dict:
       len(rows), " ".join(rows)))
   launches_round2 = drive_round2_and_publishers(out, groups["carnovel"])
 
-  bev_cuda.launches = 0
+  bev_cuda.KERNEL.launches = 0
   t0 = time.perf_counter()
   result = train_in_the_loop.run_round(
       0, out=os.path.join(workdir, "loop"), carnovel_episodes=1,
       carnovel_horizon=EXPERIMENT_HORIZON, device="cuda", **LOOP_ROUND)
   seconds = time.perf_counter() - t0
-  launches["loop_round"] = bev_cuda.launches
+  launches["loop_round"] = bev_cuda.KERNEL.launches
   want = (LOOP_ROUND["num_steps"] + LOOP_ROUND["rollout_steps"] +
           groups["carnovel"] * EXPERIMENT_HORIZON)
   print("experiments train-in-the-loop round 0 ({}; CARNOVEL at {} steps): "
@@ -2088,12 +2086,12 @@ def drive_round2_and_publishers(out: str, groups: int) -> int:
                                             publish_r4, round2)
   from oatomobile_torch.ops import bev_cuda
 
-  bev_cuda.launches = 0
+  bev_cuda.KERNEL.launches = 0
   t0 = time.perf_counter()
   table = round2.evaluate(out=out, policies=[ROUND2_POLICY],
                           horizon=ROUND2_HORIZON, device="cuda")
   seconds = time.perf_counter() - t0
-  launches = bev_cuda.launches
+  launches = bev_cuda.KERNEL.launches
   with open(os.path.join(out, "agents_summary.json")) as fp:
     written = json.load(fp)
   summary = written.get(ROUND2_POLICY, {})
@@ -2161,13 +2159,13 @@ def drive_studies(workdir: str) -> dict:
   seconds, launches = {}, {}
 
   def part(name, fn, want):
-    bev_cuda.launches = 0
+    bev_cuda.KERNEL.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = fn()
     torch.cuda.synchronize()
     seconds[name] = time.perf_counter() - t0
-    launches[name] = bev_cuda.launches
+    launches[name] = bev_cuda.KERNEL.launches
     if launches[name] != want:
       fail("bev_splat launched {} times in the {} part ({} expected)".format(
           launches[name], name, want))
@@ -2297,11 +2295,11 @@ def compare_eager_and_graph(name: str, scenes: int, steps: int,
   t0 = time.perf_counter()
   for _ in range(GRAPH_PAIRS):
     for mode in ms:
-      bev_cuda.launches = 0
+      bev_cuda.KERNEL.launches = 0
       result, seconds = profiling.timed(run, mode, steps)
       ms[mode].append(1e3 * seconds / steps)
       if mode == "graph":
-        launches.append(bev_cuda.launches)
+        launches.append(bev_cuda.KERNEL.launches)
       if first is None:
         first = result
         continue
@@ -2391,7 +2389,7 @@ def drive_compiled_paths() -> None:
       env.reset()
       # reset() synthesises the env's sensors (the LIDAR among them for
       # the collection): count the rollout's launches only.
-      bev_cuda.launches = 0
+      bev_cuda.KERNEL.launches = 0
       _, collected, stats = rollout(mode, steps)
       return {**(collected or {}), **{"stats_" + k: v
                                       for k, v in stats.items()}}
@@ -2550,12 +2548,12 @@ def drive_camera_rollout() -> int:
   graphs.capture_seconds, graphs.capture_bytes = 0.0, 0
   _, _, s = env.rollout(CAMERA_STEPS, compute=compute)
   float(s["distance"].sum())
-  bev_cuda.launches = 0
+  bev_cuda.KERNEL.launches = 0
   t0 = time.perf_counter()
   _, _, s = env.rollout(CAMERA_STEPS, compute=compute)
   float(s["distance"].sum())  # the fetch waits for the device
   elapsed = time.perf_counter() - t0
-  launches = bev_cuda.launches
+  launches = bev_cuda.KERNEL.launches
   peak = torch.cuda.max_memory_allocated()
   step_ms = 1e3 * elapsed / CAMERA_STEPS
   d = profiling.device_busy(lambda: env.rollout(8, compute=compute), 8,
@@ -2608,12 +2606,12 @@ def drive_camera_collection(workdir: str) -> int:
       carla.CARLADataset.collect_packed).parameters["modalities"].default
   modalities = tuple(modalities) + ("front_camera_rgb", "game_state")
   out = os.path.join(workdir, "camera_pack")
-  bev_cuda.launches = 0
+  bev_cuda.KERNEL.launches = 0
   t0 = time.perf_counter()
   samples = carla.CARLADataset.collect_packed(
       TOWN, out, modalities=modalities, device="cuda", **CAMERA_COLLECT)
   seconds = time.perf_counter() - t0
-  launches = bev_cuda.launches
+  launches = bev_cuda.KERNEL.launches
   shapes = {key: np.load(os.path.join(out, key + ".npy"), mmap_mode="r")
             for key in ("front_camera_rgb", "game_state")}
   env_steps = CAMERA_COLLECT["num_episodes"] * CAMERA_COLLECT["num_steps"]
@@ -2647,7 +2645,7 @@ def drive_camera_single_scene() -> int:
                                              "game_state")
   env = CARNOVEL(device="cuda").load(SINGLE_SCENE_TASK, sensors=sensors)
   env.seed(0)
-  bev_cuda.launches = 0
+  bev_cuda.KERNEL.launches = 0
   bad = []
   t0 = time.perf_counter()
   obs = env.reset()
@@ -2657,7 +2655,7 @@ def drive_camera_single_scene() -> int:
     obs, _, _, _ = env.step(agent.act(obs))
     frames.append(env.render(mode="human"))
   elapsed = time.perf_counter() - t0
-  launches = bev_cuda.launches
+  launches = bev_cuda.KERNEL.launches
   env.close()
   for i, frame in enumerate(frames):
     if (frame.dtype != np.uint8 or frame.shape != (276, 720, 3) or
@@ -2777,13 +2775,13 @@ def drive_mesh_world_one() -> tuple:
       for name, m in (("mesh", mesh), ("plain", None)):
         env = BatchedEnv(TOWN, BATCH, num_vehicles=VEHICLES,
                          route_capacity=1024, seed=0, mesh=m, device="cuda")
-        bev_cuda.launches = 0
+        bev_cuda.KERNEL.launches = 0
         t0 = time.perf_counter()
         final, _, stats = env.rollout(MESH_STEPS, compute=("lidar",))
         float(stats["distance"].sum())
         seconds[name] = time.perf_counter() - t0
         if name == "mesh":
-          launches = bev_cuda.launches
+          launches = bev_cuda.KERNEL.launches
         runs[name] = _state_summary(env, final, stats)
         del env, final, stats
       diffs = {k: _max_diff(runs["mesh"][k], runs["plain"][k])
@@ -2804,12 +2802,12 @@ def drive_mesh_world_one() -> tuple:
       backend = dist.get_backend()
       # The dry run over the same group (its mesh from the world: 1x1).
       printed = io.StringIO()
-      bev_cuda.launches = 0
+      bev_cuda.KERNEL.launches = 0
       t0 = time.perf_counter()
       with contextlib.redirect_stdout(printed):
         dry = entry.dryrun(device="cuda")
       dry_seconds = time.perf_counter() - t0
-      dry_launches = bev_cuda.launches
+      dry_launches = bev_cuda.KERNEL.launches
     finally:
       dist.destroy_process_group()
   print("mesh (a) {} at world size 1, mesh {}: {} scenes x {} steps with "
@@ -2865,11 +2863,11 @@ def mesh_rank(rank: int, world: int, store: str, out: str) -> None:
   mesh = mesh_lib.make_mesh(device="cuda:0")
   env = BatchedEnv(TOWN, MESH_RANK_SCENES, num_vehicles=VEHICLES,
                    route_capacity=1024, seed=0, mesh=mesh)
-  bev_cuda.launches = 0
+  bev_cuda.KERNEL.launches = 0
   t0 = time.perf_counter()
   final, _, stats = env.rollout(MESH_RANK_STEPS, compute=("lidar",))
   seconds = time.perf_counter() - t0
-  launches = bev_cuda.launches
+  launches = bev_cuda.KERNEL.launches
   result = {"rollout": _state_summary(env, final, stats),
             "launches": launches, "seconds": seconds,
             "shape": mesh.shape, "backend": dist.get_backend(),
@@ -3000,7 +2998,7 @@ def single_scene_run(eager: bool, steps: int, render: bool) -> dict:
   try:
     env = CARNOVEL(device="cuda").load(SINGLE_SCENE_TASK, sensors=sensors)
     env.seed(0)
-    bev_cuda.launches = 0
+    bev_cuda.KERNEL.launches = 0
     t0 = time.perf_counter()
     obs = env.reset()
     trace = [{k: np.array(v) for k, v in obs.items()}]
@@ -3025,7 +3023,7 @@ def single_scene_run(eager: bool, steps: int, render: bool) -> dict:
         break
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = bev_cuda.launches
+    launches = bev_cuda.KERNEL.launches
     env.close()
   finally:
     graphs.CapturedStep = captured_step
@@ -3145,7 +3143,9 @@ def main() -> None:
   try:
     from oatomobile_torch import graphs  # pylint: disable=import-outside-toplevel
     from oatomobile_torch.envs.batched import BatchedEnv  # pylint: disable=import-outside-toplevel
-    from oatomobile_torch.ops import bev, bev_cuda, dim_plan_cuda, group_norm_cuda  # pylint: disable=import-outside-toplevel
+    from oatomobile_torch.native import nvcc  # pylint: disable=import-outside-toplevel
+    # Each kernel's wrapper makes its Kernel, built below in this order.
+    from oatomobile_torch.ops import bev, bev_cuda, dim_plan_cuda, group_norm_cuda  # pylint: disable=import-outside-toplevel,unused-import
   except ImportError as exc:
     fail("oatomobile_torch not found next to this script ({})".format(exc))
   if "jax" in sys.modules or "oatomobile_tpu" in sys.modules:
@@ -3163,28 +3163,19 @@ def main() -> None:
   print("card: " + card)
 
   # -- 1. Build ------------------------------------------------------------
-  t0 = time.perf_counter()
-  bev_cuda.build()
-  print("build: bev_splat {:.1f}s (nvcc {:.1f}s)".format(
-      time.perf_counter() - t0, bev_cuda.build_seconds))
-  print_build("bev_splat", bev_cuda, bev_cuda.LIBRARY)
-  t0 = time.perf_counter()
-  dim_plan_cuda.build()
-  print("build: dim_plan {:.1f}s (nvcc {:.1f}s)".format(
-      time.perf_counter() - t0, dim_plan_cuda.build_seconds))
-  print_build("dim_plan", dim_plan_cuda, dim_plan_cuda.LIBRARY)
-  t0 = time.perf_counter()
-  group_norm_cuda.build()
-  print("build: group_norm {:.1f}s (nvcc {:.1f}s)".format(
-      time.perf_counter() - t0, group_norm_cuda.build_seconds))
-  print_build("group_norm", group_norm_cuda, group_norm_cuda.LIBRARY)
+  for kernel in nvcc.KERNELS:
+    t0 = time.perf_counter()
+    kernel.build()
+    print("build: {} {:.1f}s (nvcc {:.1f}s)".format(
+        kernel.name, time.perf_counter() - t0, kernel.build_seconds))
+    print_build(kernel.name, kernel, kernel.path)
   prevs = {}
   for source in args.prev_splat:
     name, library, launch = prev_splat(source, bev_cuda)
     prevs[name] = launch
-    print("build: {} from {} (nvcc {:.1f}s)".format(name, source,
-                                                   bev_cuda.build_seconds))
-    print_build(name, bev_cuda, library)
+    print("build: {} from {} (nvcc {:.1f}s)".format(
+        name, source, bev_cuda.KERNEL.build_seconds))
+    print_build(name, bev_cuda.KERNEL, library)
   if args.dim_plan:
     kernel = check_dim_plan()
     kernel["launches_dim"] = drive_dim_path()[1]
@@ -3290,12 +3281,12 @@ def main() -> None:
   float(s["distance"].sum())
   print("main path: the step captured in {:.3f}s".format(
       graphs.capture_seconds))
-  bev_cuda.launches = 0
+  bev_cuda.KERNEL.launches = 0
   t0 = time.perf_counter()
   final, _, s = env.rollout(STEPS, compute=("lidar",))
   float(s["distance"].sum())  # the fetch waits for the device
   elapsed = time.perf_counter() - t0
-  launches = bev_cuda.launches
+  launches = bev_cuda.KERNEL.launches
   s = {k: v.cpu() for k, v in s.items()}
   finite = all(bool(torch.isfinite(v.float()).all()) for v in s.values())
   print("main path: {} x {} steps in {:.3f}s = {:.1f} env steps/s (graph "

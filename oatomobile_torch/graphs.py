@@ -22,11 +22,12 @@ and writes its results back into them in place
 A call returns the function's outputs: on the card the graph's own
 tensors, which the next replay overwrites (copy what you keep).
 
-Kernel launches: each kernel wrapper counts its launches in Python
-(``launches`` of the modules in ``KERNEL_MODULES``).  A capture runs the
-wrapper once and launches nothing, and a replay launches without running
-it; so the runner takes back what the capture counted and adds it again
-at each replay, and the counters read as the eager loop's.
+Kernel launches: each hand-written kernel's wrapper counts its launches
+in Python (``launches`` of every ``Kernel`` in ``native.nvcc.KERNELS``).
+A capture runs the wrapper once and launches nothing, and a replay
+launches without running it; so the runner takes back what the capture
+counted and adds it again at each replay, and the counters read as the
+eager loop's.
 
 Marks (``utils.profiling``): the runner tells the profiling registry what
 each call runs (eager, capture, replay).  The device marks that the step's
@@ -39,13 +40,11 @@ import time
 
 import torch
 
-from oatomobile_torch.ops import bev_cuda, dim_plan_cuda, group_norm_cuda
+from oatomobile_torch.native import nvcc
 from oatomobile_torch.utils import profiling
 
 # Eager calls on the side stream before the capture.
 WARMUP_STEPS = 2
-# The modules whose integer ``launches`` counts their kernel's launches.
-KERNEL_MODULES = (bev_cuda, dim_plan_cuda, group_norm_cuda)
 
 # Captures since import (or since the caller last reset them), the host
 # seconds they took and the bytes the card reserved for them
@@ -63,10 +62,6 @@ def new_pool(device):
   return torch.cuda.graph_pool_handle()
 
 
-def _launch_counts() -> list:
-  return [module.launches for module in KERNEL_MODULES]
-
-
 class CapturedStep:
   """``step()`` runs ``fn()`` as the module docstring says."""
 
@@ -78,7 +73,8 @@ class CapturedStep:
     self._warm = 0
     self._graph = None
     self._outputs = None
-    self._launches = None
+    # The launches of each kernel that one replay makes.
+    self._launches = {}
     # The graph's device marks: they live as long as the graph.
     self._marks = ()
 
@@ -95,19 +91,22 @@ class CapturedStep:
         self._warm += 1
         with profiling.running("eager"):
           return self._run_on_side_stream()
-      before = _launch_counts()
+      before = {kernel: kernel.launches for kernel in nvcc.KERNELS}
       with profiling.running("capture") as marks:
         self._graph, self._outputs = self._record()
       self._marks = tuple(marks)
-      # What the capture counted is launched by each replay.
-      self._launches = [n - b for n, b in zip(_launch_counts(), before)]
-      for module, b in zip(KERNEL_MODULES, before):
-        module.launches = b
+      # What the capture counted (a kernel first made inside it counted
+      # from 0) is launched by each replay.
+      for kernel in nvcc.KERNELS:
+        counted = kernel.launches - before.get(kernel, 0)
+        kernel.launches -= counted
+        if counted:
+          self._launches[kernel] = counted
     with profiling.running("replay"):
       self._graph.replay()
     profiling.replayed(self._marks)
-    for module, n in zip(KERNEL_MODULES, self._launches):
-      module.launches += n
+    for kernel, n in self._launches.items():
+      kernel.launches += n
     return self._outputs
 
   def _side_stream(self) -> torch.cuda.Stream:

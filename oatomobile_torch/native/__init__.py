@@ -13,13 +13,12 @@ Current components:
 import ctypes
 import logging
 import os
-import subprocess
-import tempfile
 from typing import Optional
 
 import numpy as np
 
 from oatomobile_torch import paths
+from oatomobile_torch.native import build
 
 logger = logging.getLogger(__name__)
 
@@ -32,18 +31,9 @@ _lib_failed = False
 
 def _build_library() -> str:
   """Compiles route_planner.cc into a cached shared library."""
-  os.makedirs(_CACHE_DIR, exist_ok=True)
-  src = os.path.join(_SRC_DIR, "route_planner.cc")
   out = os.path.join(_CACHE_DIR, "libroute_planner.so")
-  if (os.path.exists(out) and
-      os.path.getmtime(out) >= os.path.getmtime(src)):
-    return out
-  with tempfile.NamedTemporaryFile(suffix=".so", dir=_CACHE_DIR,
-                                   delete=False) as tmp:
-    tmp_path = tmp.name
-  cmd = ["g++", "-O3", "-shared", "-fPIC", "-o", tmp_path, src]
-  subprocess.run(cmd, check=True, capture_output=True)
-  os.replace(tmp_path, out)
+  build.compile_library(["g++", "-O3", "-shared", "-fPIC"],
+                        os.path.join(_SRC_DIR, "route_planner.cc"), out)
   return out
 
 

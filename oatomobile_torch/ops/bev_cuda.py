@@ -12,25 +12,25 @@ design, the rounding rules and the bound.  At the bench configuration
 against ~1 slot instead of every live one, and writes each pixel pair once
 as one streaming 16-byte store.
 
-The kernel is built with ``nvcc`` at first use, from the sources in the
-package, into the port's build directory, as a shared library with a
-plain C entry point loaded through ``ctypes``.
+The kernel is ``KERNEL`` (``native/nvcc.py``): built with ``nvcc`` at
+first use, from the sources in the package, into the port's build
+directory, as a shared library with a plain C entry point loaded through
+``ctypes``.
 
 ``splat_lidar_batch`` dispatches on the device of its inputs: CPU tensors
 go to the plain version ``splat_lidar_batch_reference``; CUDA tensors
-launch the kernel or raise.  ``launches`` counts kernel launches.
+launch the kernel or raise.  ``KERNEL.launches`` counts kernel launches.
 ``stress_inputs`` makes inputs that stress the kernel's culling.
 """
 
 import ctypes
 import functools
 import math
-import os
 
 import torch
 
-from oatomobile_torch import paths
-from oatomobile_torch.ops import bev, nvcc
+from oatomobile_torch.native import nvcc
+from oatomobile_torch.ops import bev
 
 BEV = bev.BEV_SIZE  # 200
 # Slot capacities of the kernel's shared memory (csrc/bev_splat.cu).
@@ -40,41 +40,20 @@ MAX_BOXES = bev.MAX_BEV_VEHICLES + bev.MAX_BEV_PEDESTRIANS
 BLOCKS_PER_SCENE = 5  # bands of 40 rows (csrc/bev_splat.cu)
 MAX_SCENES = (2**31 - 1) // BLOCKS_PER_SCENE  # the launch grid's x extent
 
-CSRC = os.path.join(paths.PACKAGE_DIR, "csrc")
-SOURCE = os.path.join(CSRC, "bev_splat.cu")
-HEADERS = (os.path.join(CSRC, "bev_splat_tile.cuh"),)
-LIBRARY = os.path.join(paths.BUILD_DIR, "kernels", "libbev_splat.so")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              "-I", CSRC)
 
-# Kernel launches since import (or since the caller last reset it).
-launches = 0
-# What the last build printed (nvcc -Xptxas -v: registers, shared memory)
-# and how long it took, for the record.
-build_log = ""
-build_seconds = 0.0
-
-
-def build(source: str = SOURCE, library: str = LIBRARY,
-          headers=HEADERS) -> str:
-  """Compiles ``source`` into ``library`` unless the library is newer than
-  the source and every header it includes; returns the library path."""
-  global build_log, build_seconds
-  built = nvcc.build(source, library, NVCC_FLAGS, headers)
-  if built is not None:
-    build_log, build_seconds = built
-  return library
-
-
-@functools.lru_cache(maxsize=1)
-def _library() -> ctypes.CDLL:
-  lib = ctypes.CDLL(build())
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+  """Sets the C entry point's argument types on ``lib`` (the kernel's
+  library, or another build of a splat source); returns it."""
   ptr, i32 = ctypes.c_void_p, ctypes.c_int
   lib.bev_splat_launch.argtypes = [ptr, ptr, i32, ptr, i32, ptr, i32, ptr,
                                    ptr, ptr, ptr, i32, ptr]
   lib.bev_splat_launch.restype = i32
   return lib
+
+
+KERNEL = nvcc.Kernel("bev_splat", "bev_splat.cu",
+                     (*nvcc.ARCH, *nvcc.SHARED, "-I", nvcc.CSRC), declare,
+                     headers=("bev_splat_tile.cuh",))
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,24 +65,12 @@ def _tables(device: torch.device):
           torch.as_tensor(ground, device=device))
 
 
-def _check(name: str, x: torch.Tensor, shape, device) -> None:
-  if x.dtype != torch.float32:
-    raise TypeError("{} must be float32, got {}".format(name, x.dtype))
-  if x.device != device:
-    raise ValueError("{} is on {}, hero on {}".format(name, x.device, device))
-  if x.dim() != len(shape) or any(
-      want is not None and got != want for got, want in zip(x.shape, shape)):
-    raise ValueError("{} must have shape {}, got {}".format(
-        name, tuple("*" if s is None else s for s in shape), tuple(x.shape)))
-
-
 def _check_inputs(hero, walls, roads, boxes) -> None:
   device = hero.device
   B = hero.shape[0] if hero.dim() == 2 else -1
-  _check("hero", hero, (None, 4), device)
-  _check("walls", walls, (B, None, 6), device)
-  _check("roads", roads, (B, None, 6), device)
-  _check("boxes", boxes, (B, None, 6), device)
+  nvcc.check_input("hero", hero, (None, 4), device, "hero")
+  for name, x in (("walls", walls), ("roads", roads), ("boxes", boxes)):
+    nvcc.check_input(name, x, (B, None, 6), device, "hero")
   if hero.shape[0] > MAX_SCENES:
     raise ValueError("at most {} scenes per launch, got {}".format(
         MAX_SCENES, hero.shape[0]))
@@ -189,31 +156,25 @@ def splat_lidar_batch(hero: torch.Tensor, walls: torch.Tensor,
     [B, 200, 200, 2] float32 (below, above).  On CUDA tensors the kernel
     computes it; on CPU tensors the plain version does.
   """
-  global launches
   if hero.device.type == "cpu":
     return splat_lidar_batch_reference(hero, walls, roads, boxes)
   if hero.device.type != "cuda":
     raise ValueError("splat_lidar_batch runs on CUDA or CPU tensors, got "
                      "{}".format(hero.device))
   _check_inputs(hero, walls, roads, boxes)
-  for name, x in (("hero", hero), ("walls", walls), ("roads", roads),
-                  ("boxes", boxes)):
-    if not x.is_contiguous():
-      raise ValueError("{} must be contiguous".format(name))
-  lib = _library()
+  nvcc.check_contiguous((("hero", hero), ("walls", walls), ("roads", roads),
+                         ("boxes", boxes)))
   centers, counts, ground = _tables(hero.device)
   B = hero.shape[0]
   out = torch.empty((B, BEV, BEV, 2), dtype=torch.float32,
                     device=hero.device)
   stream = torch.cuda.current_stream(hero.device).cuda_stream
-  err = lib.bev_splat_launch(
+  err = KERNEL.library().bev_splat_launch(
       hero.data_ptr(), walls.data_ptr(), walls.shape[1], roads.data_ptr(),
       roads.shape[1], boxes.data_ptr(), boxes.shape[1], centers.data_ptr(),
       counts.data_ptr(), ground.data_ptr(), out.data_ptr(), B, stream)
-  if err != 0:
-    raise RuntimeError("bev_splat kernel launch failed: CUDA error "
-                       "{}".format(err))
-  launches += 1
+  KERNEL.check(err)
+  KERNEL.launches += 1
   return out
 
 

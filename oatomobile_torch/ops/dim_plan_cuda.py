@@ -20,21 +20,19 @@ on its last bits.
 ``plan`` dispatches on the device of z: CPU tensors go to the plain
 version ``plan_reference``, which writes out the kernel's backward with
 tensor operations and no autograd (``loss_and_grad``); CUDA tensors launch
-the kernel or raise.  The plan is not differentiable.  ``launches``
-counts kernel launches, ``build_seconds`` the last build's nvcc seconds.
+the kernel or raise.  The plan is not differentiable.  ``KERNEL``
+(``native/nvcc.py``) builds and loads the kernel and counts its launches.
 """
 
 import ctypes
 import functools
-import os
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from oatomobile_torch import paths
-from oatomobile_torch.ops import nvcc
+from oatomobile_torch.native import nvcc
 
 HIDDEN = 64   # the flow's GRU
 HEAD = 32     # the flow's head: HIDDEN -> HEAD -> 2 * DIM
@@ -43,24 +41,10 @@ MAX_HORIZON = 8     # csrc/dim_plan.cu kMaxT
 MAX_STEPS = 256     # csrc/dim_plan.cu kMaxSteps
 MAX_GOALS = 32      # csrc/dim_plan.cu kMaxGoals
 
-SOURCE = os.path.join(paths.PACKAGE_DIR, "csrc", "dim_plan.cu")
-LIBRARY = os.path.join(paths.BUILD_DIR, "kernels", "libdim_plan.so")
-# IEEE float32: no fast-math, and no contraction of a product and a sum
-# into one FMA outside the dot products (which call fmaf themselves).
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
-
 # optax.adam's defaults (models/dim.adam_update).
 B1, B2 = 0.9, 0.999
 # log(2 pi) as the JAX package rounds it (models/sequence.LOG_2PI).
 LOG_2PI = float(np.log(np.float32(2.0 * np.pi)))
-
-# Kernel launches since import (or since the caller last reset it).
-launches = 0
-# What the last build printed (registers, shared memory) and its seconds.
-build_log = ""
-build_seconds = 0.0
 
 
 class FlowWeights(NamedTuple):
@@ -95,16 +79,6 @@ def bias_corrections(num_steps: int) -> Tuple[np.ndarray, np.ndarray]:
   return np.asarray(c1, np.float32), np.asarray(c2, np.float32)
 
 
-def build(source: str = SOURCE, library: str = LIBRARY) -> str:
-  """Compiles the kernel unless the library is newer than its source;
-  returns the library path."""
-  global build_log, build_seconds
-  built = nvcc.build(source, library, NVCC_FLAGS)
-  if built is not None:
-    build_log, build_seconds = built
-  return library
-
-
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
   """Sets the C entry points' argument types on ``lib`` (the kernel's
   library, or another build of its source); returns it."""
@@ -125,16 +99,17 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
   return lib
 
 
-@functools.lru_cache(maxsize=1)
-def _library() -> ctypes.CDLL:
-  return declare(ctypes.CDLL(build()))
+# IEEE float32: no fast-math, and no contraction of a product and a sum
+# into one FMA outside the dot products (which call fmaf themselves).
+KERNEL = nvcc.Kernel("dim_plan", "dim_plan.cu",
+                     (*nvcc.ARCH, "-fmad=false", *nvcc.SHARED), declare)
 
 
 @functools.lru_cache(maxsize=None)
 def _configure(device: torch.device) -> None:
   """Lets the kernel take its shared memory on ``device`` (once)."""
   with torch.cuda.device(device):
-    err = _library().dim_plan_configure()
+    err = KERNEL.library().dim_plan_configure()
   if err != 0:
     raise RuntimeError("dim_plan: cudaFuncSetAttribute failed: CUDA error "
                        "{}".format(err))
@@ -150,34 +125,23 @@ def _host_tables(num_steps: int):
                for c in bias_corrections(num_steps))
 
 
-def _check(name: str, x: torch.Tensor, shape, device) -> None:
-  if x.dtype != torch.float32:
-    raise TypeError("{} must be float32, got {}".format(name, x.dtype))
-  if x.device != device:
-    raise ValueError("{} is on {}, z on {}".format(name, x.device, device))
-  if x.dim() != len(shape) or any(
-      want is not None and got != want for got, want in zip(x.shape, shape)):
-    raise ValueError("{} must have shape {}, got {}".format(
-        name, tuple("*" if s is None else s for s in shape), tuple(x.shape)))
-
-
 def _check_scalar(name: str, v, device) -> None:
   if isinstance(v, torch.Tensor):
-    _check(name, v, (), device)
+    nvcc.check_input(name, v, (), device, "z")
 
 
 def _check_inputs(weights: FlowWeights, z, goal, horizon: int, lr,
                   epsilon) -> None:
   device = z.device
   B = z.shape[0] if z.dim() == 2 else -1
-  _check("z", z, (None, HIDDEN), device)
+  nvcc.check_input("z", z, (None, HIDDEN), device, "z")
   if goal is not None:
-    _check("goal", goal, (B, None, DIM), device)
+    nvcc.check_input("goal", goal, (B, None, DIM), device, "z")
   shapes = dict(w_ih=(3 * HIDDEN, DIM), b_ih=(3 * HIDDEN,),
                 w_hh=(3 * HIDDEN, HIDDEN), b_hn=(HIDDEN,), w0=(HEAD, HIDDEN),
                 b0=(HEAD,), w1=(2 * DIM, HEAD), b1=(2 * DIM,))
   for name, x in weights._asdict().items():
-    _check(name, x, shapes[name], device)
+    nvcc.check_input(name, x, shapes[name], device, "z")
   _check_scalar("lr", lr, device)
   _check_scalar("epsilon", epsilon, device)
   if horizon < 1:
@@ -368,9 +332,7 @@ def launch(lib: ctypes.CDLL, weights: FlowWeights, z: torch.Tensor,
       log_eps, 0.5 * horizon * DIM * LOG_2PI, 0.5 * DIM * LOG_2PI,
       float(np.log(np.float32(max(K, 1)))), r1, r2, out.data_ptr(),
       best.data_ptr(), B, horizon, num_steps, stream)
-  if err != 0:
-    raise RuntimeError("dim_plan kernel launch failed: CUDA error "
-                       "{}".format(err))
+  KERNEL.check(err)
   return out, best
 
 
@@ -394,7 +356,6 @@ def plan(weights: FlowWeights, z: torch.Tensor,
     step, counted from 0).  On CUDA tensors the kernel computes them, on
     CPU tensors the plain version does.
   """
-  global launches
   if z.device.type == "cpu":
     return plan_reference(weights, z, goal, num_steps=num_steps, lr=lr,
                           epsilon=epsilon, horizon=horizon)
@@ -411,16 +372,15 @@ def plan(weights: FlowWeights, z: torch.Tensor,
   if goal is not None and not 1 <= goal.shape[1] <= MAX_GOALS:
     raise ValueError("the kernel takes 1 to {} goals a scene, got {}".format(
         MAX_GOALS, goal.shape[1]))
-  for name, x in (("z", z), *weights._asdict().items()):
-    if not x.is_contiguous():
-      raise ValueError("{} must be contiguous".format(name))
+  nvcc.check_contiguous((("z", z), *weights._asdict().items()))
   B = z.shape[0]
   if B == 0:
     return (torch.empty((0, horizon, DIM), device=z.device),
             torch.empty((0,), dtype=torch.int32, device=z.device))
   _configure(z.device)
-  out, best = launch(_library(), weights, z, goal, num_steps=num_steps,
-                     lr=lr, epsilon=epsilon, horizon=horizon,
+  out, best = launch(KERNEL.library(), weights, z, goal,
+                     num_steps=num_steps, lr=lr, epsilon=epsilon,
+                     horizon=horizon,
                      stream=torch.cuda.current_stream(z.device).cuda_stream)
-  launches += 1
+  KERNEL.launches += 1
   return out, best

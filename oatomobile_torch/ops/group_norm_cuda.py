@@ -16,47 +16,20 @@ order of summation and its fused multiply-adds.
 tensors and launches the kernel on CUDA tensors; on either it raises on
 what the kernel does not take.  It is not differentiable: the encoder
 takes it only where ``engages`` says so (float32 on CUDA, autograd off).
-``launches`` counts kernel launches, ``build_seconds`` the last build's
-nvcc seconds.
+``KERNEL`` (``native/nvcc.py``) builds and loads the kernel and counts
+its launches.
 """
 
 import ctypes
-import functools
-import os
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from oatomobile_torch import paths
-from oatomobile_torch.ops import nvcc
+from oatomobile_torch.native import nvcc
 
 GROUP = 8                   # channels a group (csrc/group_norm.cu kGroup)
 EPILOGUES = {"none": 0, "relu6": 1, "residual": 2}
-
-SOURCE = os.path.join(paths.PACKAGE_DIR, "csrc", "group_norm.cu")
-LIBRARY = os.path.join(paths.BUILD_DIR, "kernels", "libgroup_norm.so")
-# IEEE float32: no fast-math, and no contraction beyond the fmaf calls that
-# repeat PyTorch's.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
-
-# Kernel launches since import (or since the caller last reset it).
-launches = 0
-# What the last build printed (registers, shared memory) and its seconds.
-build_log = ""
-build_seconds = 0.0
-
-
-def build(source: str = SOURCE, library: str = LIBRARY) -> str:
-  """Compiles the kernel unless the library is newer than its source;
-  returns the library path."""
-  global build_log, build_seconds
-  built = nvcc.build(source, library, NVCC_FLAGS)
-  if built is not None:
-    build_log, build_seconds = built
-  return library
 
 
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -73,9 +46,10 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
   return lib
 
 
-@functools.lru_cache(maxsize=1)
-def _library() -> ctypes.CDLL:
-  return declare(ctypes.CDLL(build()))
+# IEEE float32: no fast-math, and no contraction beyond the fmaf calls that
+# repeat PyTorch's.
+KERNEL = nvcc.Kernel("group_norm", "group_norm.cu",
+                     (*nvcc.ARCH, "-fmad=false", *nvcc.SHARED), declare)
 
 
 def engages(x: torch.Tensor) -> bool:
@@ -102,16 +76,8 @@ def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
   if residual is not None:
     named.append(("residual", residual, tuple(x.shape)))
   for name, t, shape in named:
-    if t.dtype != torch.float32:
-      raise TypeError("{} must be float32, got {}".format(name, t.dtype))
-    if t.device != x.device:
-      raise ValueError("{} is on {}, x on {}".format(name, t.device,
-                                                     x.device))
-    if tuple(t.shape) != shape:
-      raise ValueError("{} must have shape {}, got {}".format(
-          name, shape, tuple(t.shape)))
-    if not t.is_contiguous():
-      raise ValueError("{} must be contiguous".format(name))
+    nvcc.check_input(name, t, shape, x.device, "x")
+    nvcc.check_contiguous(((name, t),))
 
 
 def group_norm_reference(x: torch.Tensor, weight: torch.Tensor,
@@ -150,9 +116,7 @@ def launch(lib: ctypes.CDLL, x: torch.Tensor, weight: torch.Tensor,
       x.data_ptr(), weight.data_ptr(), bias.data_ptr(), address(residual),
       y.data_ptr(), address(mean), address(rstd), n * channels // GROUP,
       channels // GROUP, h * w, eps, EPILOGUES[epilogue], stream)
-  if err != 0:
-    raise RuntimeError("group_norm kernel launch failed: CUDA error "
-                       "{}".format(err))
+  KERNEL.check(err)
   return (y, mean, rstd) if stats else y
 
 
@@ -166,7 +130,6 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
   one epilogue at most.  On CUDA tensors the kernel computes it, on CPU
   tensors the plain version does.
   """
-  global launches
   _check(x, weight, bias, relu6, residual)
   if x.device.type == "cpu":
     return group_norm_reference(x, weight, bias, eps, relu6=relu6,
@@ -176,8 +139,8 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                      "{}".format(x.device))
   if x.numel() == 0:
     return torch.empty_like(x)
-  y = launch(_library(), x, weight, bias, eps, relu6=relu6,
+  y = launch(KERNEL.library(), x, weight, bias, eps, relu6=relu6,
              residual=residual,
              stream=torch.cuda.current_stream(x.device).cuda_stream)
-  launches += 1
+  KERNEL.launches += 1
   return y

@@ -108,6 +108,13 @@ ALLOWLIST = {
         "simulators/cuda/__init__.py::CUDASimulator", _TPU_SIM),
     "simulators/__init__.py::__all__[TPUSimulator]": (
         "simulators/__init__.py::CUDASimulator", _TPU_SIM),
+    "native/__init__.py::__all__[subprocess]": (
+        "native/build.py::compile_library",
+        "the port's native builds run their compiler in native/build.py"),
+    "native/__init__.py::__all__[tempfile]": (
+        "native/build.py::compile_library",
+        "the port's native builds write their temporary file in "
+        "native/build.py"),
     "envs/batched.py::BatchedEnv._compile_step": (
         "envs/batched.py::BatchedEnv._make_rollout_step",
         "the jitted step is a graphs.CapturedStep, made per rollout"),

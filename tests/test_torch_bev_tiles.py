@@ -21,23 +21,20 @@ operations, ``-ffp-contract=off``), and the tests check that
 import ctypes
 import os
 import shutil
-import subprocess
-import tempfile
 
 import numpy as np
 import pytest
 import torch
 
-from oatomobile_torch import paths
 from oatomobile_torch import sim as tsim
 from oatomobile_torch.maps import load_town
+from oatomobile_torch.native import build, nvcc
 from oatomobile_torch.ops import bev, bev_cuda
 
 torch.set_num_threads(1)
 
-HARNESS = os.path.join(bev_cuda.CSRC, "bev_splat_tile_host.cc")
-LIBRARY = os.path.join(paths.BUILD_DIR, "kernels",
-                       "libbev_splat_tile_host.so")
+HARNESS = os.path.join(nvcc.CSRC, "bev_splat_tile_host.cc")
+LIBRARY = os.path.join(nvcc.LIBRARY_DIR, "libbev_splat_tile_host.so")
 BEV = bev.BEV_SIZE
 TILE_ROWS, TILE_COLS = 8, 40  # csrc/bev_splat_tile.cuh
 
@@ -58,20 +55,9 @@ def harness():
   gxx = shutil.which("g++")
   if gxx is None:
     pytest.skip("needs g++ to build csrc/bev_splat_tile_host.cc")
-  sources = (HARNESS, *bev_cuda.HEADERS)
-  if not (os.path.exists(LIBRARY) and os.path.getmtime(LIBRARY) >= max(
-      os.path.getmtime(s) for s in sources)):
-    os.makedirs(os.path.dirname(LIBRARY), exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(LIBRARY))
-    os.close(fd)
-    proc = subprocess.run(
-        [gxx, "-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
-         "-I", bev_cuda.CSRC, "-o", tmp, HARNESS],
-        capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-      os.unlink(tmp)
-      raise RuntimeError(proc.stdout + proc.stderr)
-    os.replace(tmp, LIBRARY)
+  build.compile_library(
+      [gxx, "-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
+       "-I", nvcc.CSRC], HARNESS, LIBRARY, bev_cuda.KERNEL.headers)
   lib = ctypes.CDLL(LIBRARY)
   ptr, i32 = ctypes.c_void_p, ctypes.c_int
   lib.bev_tile_boxes.argtypes = [ptr, ptr, i32, i32, ptr, ptr]

@@ -234,7 +234,7 @@ def test_captured_rollout_serves_the_five_keys(card, request):
                    for _ in range(2))
   got = _run(runner, True, 4, **rollout)
   if card:
-    assert bev_cuda.launches == 4  # the computed LIDAR, once a step
+    assert bev_cuda.KERNEL.launches == 4  # the computed LIDAR, once a step
   want = _run(eager, False, 4, **rollout)
   for g, w in zip(got, want):
     assert_trees_equal(g, w)

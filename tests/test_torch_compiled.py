@@ -24,6 +24,7 @@ from oatomobile_torch.benchmarks.corl2017.benchmark import _TASKS
 from oatomobile_torch.datasets.carla import _resize_quantize
 from oatomobile_torch.envs.batched import BatchedEnv
 from oatomobile_torch.models import ImitativeModel
+from oatomobile_torch.native import nvcc
 from oatomobile_torch.ops import bev_cuda, dim_plan_cuda, group_norm_cuda
 from oatomobile_torch.sim import autopilot_policy
 from oatomobile_torch.sim.types import scene_state_to_numpy
@@ -86,10 +87,10 @@ class _FakeGraph:
     if self._skip:  # the capture ran this step
       self._skip = False
       return
-    counts = graphs._launch_counts()  # pylint: disable=protected-access
+    counts = {kernel: kernel.launches for kernel in nvcc.KERNELS}
     _copy_into(self._outputs, self._fn())
-    for module, n in zip(graphs.KERNEL_MODULES, counts):
-      module.launches = n  # a replay runs no Python
+    for kernel, n in counts.items():
+      kernel.launches = n  # a replay runs no Python
 
 
 def _copy_into(dst, src):
@@ -133,15 +134,15 @@ def fake_card(monkeypatch):
   group_norm = group_norm_cuda.group_norm
 
   def counting_splat(*inputs):
-    bev_cuda.launches += 1
+    bev_cuda.KERNEL.launches += 1
     return reference(*inputs)
 
   def counting_plan(*args, **kwargs):
-    dim_plan_cuda.launches += 1
+    dim_plan_cuda.KERNEL.launches += 1
     return plan(*args, **kwargs)
 
   def counting_group_norm(*args, **kwargs):
-    group_norm_cuda.launches += 1
+    group_norm_cuda.KERNEL.launches += 1
     return group_norm(*args, **kwargs)
 
   def engages_on_cpu(x):
@@ -149,12 +150,12 @@ def fake_card(monkeypatch):
 
   monkeypatch.setattr(graphs, "CapturedStep", FakeCapturedStep)
   monkeypatch.setattr(bev_cuda, "splat_lidar_batch", counting_splat)
-  monkeypatch.setattr(bev_cuda, "launches", 0)
+  monkeypatch.setattr(bev_cuda.KERNEL, "launches", 0)
   monkeypatch.setattr(dim_plan_cuda, "plan", counting_plan)
-  monkeypatch.setattr(dim_plan_cuda, "launches", 0)
+  monkeypatch.setattr(dim_plan_cuda.KERNEL, "launches", 0)
   monkeypatch.setattr(group_norm_cuda, "group_norm", counting_group_norm)
   monkeypatch.setattr(group_norm_cuda, "engages", engages_on_cpu)
-  monkeypatch.setattr(group_norm_cuda, "launches", 0)
+  monkeypatch.setattr(group_norm_cuda.KERNEL, "launches", 0)
   FakeCapturedStep.instances = []
   return FakeCapturedStep.instances
 
@@ -235,9 +236,9 @@ def test_dim_policy_rollout_equals_eager(fake_card):
                    for _ in range(2))
   got = _run(runner, True, 5, policy=policy())
   assert len(fake_card) == 1 and fake_card[0].captured
-  assert bev_cuda.launches == 5  # the policy's LIDAR, once a step
-  assert dim_plan_cuda.launches == 5  # the plan, once a step
-  assert group_norm_cuda.launches == 5 * 52  # the encoder's norms
+  assert bev_cuda.KERNEL.launches == 5  # the policy's LIDAR, once a step
+  assert dim_plan_cuda.KERNEL.launches == 5  # the plan, once a step
+  assert group_norm_cuda.KERNEL.launches == 5 * 52  # the encoder's norms
   want = _run(eager, False, 5, policy=policy())
   for g, w in zip(got, want):
     assert_trees_equal(g, w)
@@ -256,9 +257,9 @@ def test_rip_policy_rollout_equals_eager(fake_card):
                    for _ in range(2))
   got = _run(runner, True, 3, policy=policy())
   assert len(fake_card) == 1 and fake_card[0].captured
-  assert bev_cuda.launches == 3
-  assert dim_plan_cuda.launches == 0  # RIP plans over autograd
-  assert group_norm_cuda.launches == 3 * 4 * 52  # four encoders a step
+  assert bev_cuda.KERNEL.launches == 3
+  assert dim_plan_cuda.KERNEL.launches == 0  # RIP plans over autograd
+  assert group_norm_cuda.KERNEL.launches == 3 * 4 * 52  # four encoders a step
   want = _run(eager, False, 3, policy=policy())
   for g, w in zip(got, want):
     assert_trees_equal(g, w)
@@ -387,28 +388,61 @@ def test_capture_counts_launches_per_replay(fake_card):
 
   def step():
     calls.append(1)
-    bev_cuda.launches += 2  # a step that launches two kernels
+    bev_cuda.KERNEL.launches += 2  # a step that launches two kernels
 
   run = graphs.CapturedStep(step, "cuda")
   for i in range(6):
     run()
-    assert bev_cuda.launches == 2 * (i + 1)
+    assert bev_cuda.KERNEL.launches == 2 * (i + 1)
     assert run.captured == (i >= graphs.WARMUP_STEPS)
+
+
+@pytest.mark.parametrize("made", ["inside", "after"])
+def test_capture_counts_a_kernel_made_inside_or_after_it(fake_card,
+                                                         monkeypatch, made):
+  """The runner keeps a capture's launches by ``Kernel``: one first made
+  inside the capture counts at each replay; one made after it is not in
+  the graph, and a replay counts none of its launches."""
+  del fake_card
+  monkeypatch.setattr(nvcc, "KERNELS", list(nvcc.KERNELS))
+  late, calls = [], []
+
+  def make():
+    late.append(nvcc.Kernel("late", "late.cu", (), lambda lib: lib))
+
+  def step():
+    calls.append(1)
+    bev_cuda.KERNEL.launches += 1
+    if made == "inside" and len(calls) == graphs.WARMUP_STEPS + 1:
+      make()
+    if late:
+      late[0].launches += 1
+
+  run = graphs.CapturedStep(step, "cuda")
+  for _ in range(graphs.WARMUP_STEPS + 1):
+    run()
+  assert run.captured
+  if made == "after":
+    make()
+  for _ in range(3):
+    run()
+  assert bev_cuda.KERNEL.launches == graphs.WARMUP_STEPS + 4
+  assert late[0].launches == (4 if made == "inside" else 0)
 
 
 @pytest.mark.parametrize("steps", [1, 2, 3, 30])
 def test_splat_launches_once_a_step_under_replay(fake_card, steps):
   env = BatchedEnv(TOWN, 2, device="cpu", **AUTOPILOT)
   env.rollout(steps, compute=LIDAR)
-  assert bev_cuda.launches == steps
-  bev_cuda.launches = 0
+  assert bev_cuda.KERNEL.launches == steps
+  bev_cuda.KERNEL.launches = 0
   env.rollout(steps, compute=LIDAR)  # the cached graph's replays
-  assert bev_cuda.launches == steps
+  assert bev_cuda.KERNEL.launches == steps
   assert len(fake_card) == 1
   assert fake_card[0].captured == (2 * steps > graphs.WARMUP_STEPS)
-  bev_cuda.launches = 0
+  bev_cuda.KERNEL.launches = 0
   env.rollout(steps)  # nothing computed: another graph, no splat
-  assert bev_cuda.launches == 0 and len(fake_card) == 2
+  assert bev_cuda.KERNEL.launches == 0 and len(fake_card) == 2
 
 
 def test_no_public_switch_chooses_eager():

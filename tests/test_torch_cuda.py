@@ -36,9 +36,9 @@ def test_bev_splat_kernel_matches_plain_version(card, town, vehicles,
                    num_pedestrians=pedestrians, seed=1, device=card)
   env.rollout(10, compute=())
   inputs = bev.gather_inputs(env.params, env.state)
-  before = bev_cuda.launches
+  before = bev_cuda.KERNEL.launches
   out = bev_cuda.splat_lidar_batch(*inputs)
-  assert bev_cuda.launches == before + 1
+  assert bev_cuda.KERNEL.launches == before + 1
   ref = bev_cuda.splat_lidar_batch_reference(*inputs)
   torch.cuda.synchronize()
   # Same float32 roundings (no FMA in the kernel) and conservative culling
@@ -80,7 +80,7 @@ def test_bev_splat_kernel_refuses_a_misaligned_output(card):
   centers, counts, ground = bev_cuda._tables(card)  # pylint: disable=protected-access
   out = torch.empty(2 * 200 * 200 * 2 + 1, device=card)[1:]
   hero, walls, roads, boxes = inputs
-  err = bev_cuda._library().bev_splat_launch(  # pylint: disable=protected-access
+  err = bev_cuda.KERNEL.library().bev_splat_launch(
       hero.data_ptr(), walls.data_ptr(), walls.shape[1], roads.data_ptr(),
       roads.shape[1], boxes.data_ptr(), boxes.shape[1], centers.data_ptr(),
       counts.data_ptr(), ground.data_ptr(), out.data_ptr(), 2,
@@ -126,9 +126,9 @@ def test_captured_rollout_equals_the_eager_loop(card):
   kwargs = dict(num_vehicles=8, seed=4, max_episode_steps=12)
   graph, eager = (BatchedEnv("Town02", 4, device=card, **kwargs)
                   for _ in range(2))
-  before = bev_cuda.launches
+  before = bev_cuda.KERNEL.launches
   final, _, stats = graph.rollout(30, compute=("lidar",))
-  assert bev_cuda.launches == before + 30
+  assert bev_cuda.KERNEL.launches == before + 30
   final_e, _, stats_e = eager._rollout_eager(30, compute=("lidar",))  # pylint: disable=protected-access
   for key in stats:
     assert torch.equal(stats[key], stats_e[key]), key
@@ -265,25 +265,25 @@ def test_dim_plan_launches_once_a_plan(card):
   from oatomobile_torch.baselines.learned.rip.agent import rip_plan  # pylint: disable=import-outside-toplevel
   from oatomobile_torch.ops import dim_plan_cuda  # pylint: disable=import-outside-toplevel
   model, _, z, goal = _dim_plan_inputs(card, 16, 5)
-  before = dim_plan_cuda.launches
+  before = dim_plan_cuda.KERNEL.launches
   model.plan_from_z(z, goal=goal, num_steps=3)
-  assert dim_plan_cuda.launches == before + 1
+  assert dim_plan_cuda.KERNEL.launches == before + 1
   env = BatchedEnv("Town02", 4, num_vehicles=8, seed=4, device=card)
   policy = make_dim_policy(model)
-  before = dim_plan_cuda.launches
+  before = dim_plan_cuda.KERNEL.launches
   env.rollout(6, policy=policy)
   torch.cuda.synchronize()
-  assert dim_plan_cuda.launches == before + 6
+  assert dim_plan_cuda.KERNEL.launches == before + 6
   obs = policy.observe(env.params, env.state)
-  before = dim_plan_cuda.launches
+  before = dim_plan_cuda.KERNEL.launches
   rip_plan([model, model], obs.goal, obs.context, num_steps=2)
-  assert dim_plan_cuda.launches == before
+  assert dim_plan_cuda.KERNEL.launches == before
 
 
 def test_dim_plan_kernel_refuses_what_it_does_not_take(card):
   from oatomobile_torch.ops import dim_plan_cuda  # pylint: disable=import-outside-toplevel
   _, weights, z, goal = _dim_plan_inputs(card, 8, 6)
-  before = dim_plan_cuda.launches
+  before = dim_plan_cuda.KERNEL.launches
   with pytest.raises(ValueError):  # not contiguous
     dim_plan_cuda.plan(weights, z.t().contiguous().t(), goal, **PLAN)
   with pytest.raises(ValueError):
@@ -298,11 +298,11 @@ def test_dim_plan_kernel_refuses_what_it_does_not_take(card):
     dim_plan_cuda.plan(weights, z, goal, **dict(PLAN, num_steps=257))
   with pytest.raises(ValueError):
     dim_plan_cuda.plan(weights, z, goal.repeat(1, 4, 1), **PLAN)
-  assert dim_plan_cuda.launches == before
+  assert dim_plan_cuda.KERNEL.launches == before
   # The C entry point refuses what the wrapper would have.
   out = torch.empty(8, 4, 2, device=card)
   best = torch.empty(8, dtype=torch.int32, device=card)
-  err = dim_plan_cuda._library().dim_plan_launch(  # pylint: disable=protected-access
+  err = dim_plan_cuda.KERNEL.library().dim_plan_launch(
       z.data_ptr(), goal.data_ptr(), 40, *goal.stride(),
       *(w.data_ptr() for w in weights), None, 0.05, None, 1.0, 0.0, 7.35,
       1.84, 2.3, *dim_plan_cuda._host_tables(20), out.data_ptr(),  # pylint: disable=protected-access
@@ -325,7 +325,7 @@ def test_group_norm_kernel_equals_pytorch_at_every_encoder_shape(
   import chip_smoke  # pylint: disable=import-outside-toplevel
   from oatomobile_torch.ops import group_norm_cuda as gn  # pylint: disable=import-outside-toplevel
   eps = 1e-6
-  lib = gn._library()  # pylint: disable=protected-access
+  lib = gn.KERNEL.library()
   apart = []
   shapes = chip_smoke.encoder_norms(size)
   assert len(shapes) == chip_smoke.GROUP_NORM_PER_FORWARD
@@ -374,9 +374,9 @@ def test_encoder_z_equals_the_reference_bit_for_bit(card):
   torch.backends.cudnn.allow_tf32 = False
   try:
     with torch.no_grad():
-      before = gn.launches
+      before = gn.KERNEL.launches
       z = program.params_z(**context)
-      launched = gn.launches - before
+      launched = gn.KERNEL.launches - before
       want = reference.params_z(**context)
   finally:
     (torch.backends.cuda.matmul.allow_tf32,
@@ -409,24 +409,24 @@ def test_group_norm_launches_only_without_autograd(card):
   from oatomobile_torch.ops import group_norm_cuda as gn  # pylint: disable=import-outside-toplevel
   model = ImitativeModel(device=card).requires_grad_(False)
   x = torch.rand(4, 2, 100, 100, device=card)
-  before = gn.launches
+  before = gn.KERNEL.launches
   with torch.no_grad():
     model.encoder(x)
-  assert gn.launches == before + 52
+  assert gn.KERNEL.launches == before + 52
   model.encoder(x)  # autograd on: the plain path
   with torch.no_grad():
     encoder_copy(model, "bfloat16").encoder(x.to(torch.bfloat16))
-  assert gn.launches == before + 52
+  assert gn.KERNEL.launches == before + 52
   with torch.no_grad():  # rows past 20,480 floats: the kernel still
     model.encoder(torch.rand(2, 2, 128, 128, device=card))
-  assert gn.launches == before + 104
+  assert gn.KERNEL.launches == before + 104
 
 
 def test_group_norm_kernel_refuses_what_it_does_not_take(card):
   from oatomobile_torch.ops import group_norm_cuda as gn  # pylint: disable=import-outside-toplevel
   x = torch.randn(2, 16, 5, 5, device=card)
   w, b = torch.ones(16, device=card), torch.zeros(16, device=card)
-  before = gn.launches
+  before = gn.KERNEL.launches
   with pytest.raises(ValueError):
     gn.group_norm(x.transpose(2, 3), w, b, 1e-6)
   with pytest.raises(ValueError):
@@ -435,10 +435,10 @@ def test_group_norm_kernel_refuses_what_it_does_not_take(card):
     gn.group_norm(x.double(), w, b, 1e-6)
   with pytest.raises(ValueError):
     gn.group_norm(x, w.cpu(), b, 1e-6)
-  assert gn.launches == before
+  assert gn.KERNEL.launches == before
   # The entry point refuses the residual epilogue without a residual.
   y = torch.empty_like(x)
-  err = gn._library().group_norm_launch(  # pylint: disable=protected-access
+  err = gn.KERNEL.library().group_norm_launch(
       x.data_ptr(), w.data_ptr(), b.data_ptr(), None, y.data_ptr(), None,
       None, 4, 2, 25, 1e-6, 2, torch.cuda.current_stream().cuda_stream)
   assert err != 0

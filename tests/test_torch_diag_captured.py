@@ -56,7 +56,7 @@ def test_hero_stops_captured_equals_eager(card, request):
   if card:
     assert len(FakeCapturedStep.instances) == 1
     assert FakeCapturedStep.instances[0].captured
-    assert bev_cuda.launches == 0  # the autopilot reads no LIDAR
+    assert bev_cuda.KERNEL.launches == 0  # the autopilot reads no LIDAR
 
 
 def test_crash_snapshots_and_traces_equal_eager(fake_card):  # pylint: disable=redefined-outer-name,unused-argument
@@ -106,7 +106,7 @@ def test_learned_policy_captured_equals_eager_one_splat_a_step(fake_card):  # py
   m0 = learned_failures.initial(2, "cpu")
   got = common.run(params, states, policy,
                    learned_failures.make_accumulate(params), m0, steps, "cpu")
-  assert bev_cuda.launches == steps
+  assert bev_cuda.KERNEL.launches == steps
   assert len(fake_card) == 1 and fake_card[0].captured
   want = common.run_eager(params, states, policy,
                           learned_failures.make_accumulate(params), m0, steps)

@@ -16,9 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from oatomobile_torch import graphs
 from oatomobile_torch.models import ImitativeModel
 from oatomobile_torch.models import dim
+from oatomobile_torch.native import nvcc
 from oatomobile_torch.ops import dim_plan_cuda
 
 torch.set_num_threads(1)
@@ -200,8 +200,8 @@ def test_the_wrapper_refuses_what_it_does_not_take(model):
     dim_plan_cuda.plan(weights, z, goals, **dict(kwargs, horizon=0))
   with pytest.raises(ValueError):  # neither the card nor the CPU
     dim_plan_cuda.plan(weights, z.to("meta"), None, **kwargs)
-  assert dim_plan_cuda.launches == 0  # the CPU launches nothing
+  assert dim_plan_cuda.KERNEL.launches == 0  # the CPU launches nothing
 
 
 def test_captured_steps_count_the_planner_kernel():
-  assert dim_plan_cuda in graphs.KERNEL_MODULES
+  assert dim_plan_cuda.KERNEL in nvcc.KERNELS

@@ -9,46 +9,24 @@ and the host's libm stands in for CUDA's, so plans agree to float32
 rounding (1e-5 m) and choose the same best iterate.  Skips without g++.
 """
 
-import ctypes
-import os
-import re
-import shutil
-import subprocess
-
 import pytest
 import torch
 
 from oatomobile_torch.models import ImitativeModel
 from oatomobile_torch.ops import dim_plan_cuda
+from torch_port_helpers import emulated_library
 
 torch.set_num_threads(1)
-
-HEADER_DIR = os.path.join(os.path.dirname(__file__), "cuda_emulation")
-# Each launch `k<<<grid, block, smem, stream>>>(args)` of the source.
-LAUNCH = re.compile(r"(\w+)<<<([^>]*)>>>\(([^;]*)\);")
 
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
   """The kernel's library built from ``csrc/dim_plan.cu`` for the host."""
-  if shutil.which("g++") is None:
-    pytest.skip("needs g++ to build the kernel's source for the CPU")
-  with open(dim_plan_cuda.SOURCE) as fp:
-    source = fp.read()
-  assert len(LAUNCH.findall(source)) == 1
-  source = LAUNCH.sub(r"emulate_launch(\1, \2, \3);", source)
-  work = tmp_path_factory.mktemp("dim_plan_emulated")
-  unit = work / "dim_plan_emulated.cc"
-  unit.write_text(
-      "#include <cuda_runtime.h>\n"
-      "namespace { alignas(16) float4 smem4[1 << 16]; }\n"
-      "std::size_t emulated_smem_bytes() { return sizeof(smem4); }\n" +
-      source)
-  library = work / "libdim_plan_emulated.so"
-  subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off",
-                  "-shared", "-fPIC", "-pthread", "-I", HEADER_DIR, "-o",
-                  str(library), str(unit)], check=True)
-  return dim_plan_cuda.declare(ctypes.CDLL(str(library)))
+  return emulated_library(
+      dim_plan_cuda.KERNEL, tmp_path_factory.mktemp("dim_plan_emulated"),
+      launches=1,
+      prelude="namespace { alignas(16) float4 smem4[1 << 16]; }\n"
+      "std::size_t emulated_smem_bytes() { return sizeof(smem4); }\n")
 
 
 def model_of(horizon: int) -> ImitativeModel:

@@ -163,11 +163,11 @@ def _args(**changes):
         "residual-strides", "two-epilogues"])
 def test_wrapper_refuses_what_the_kernel_does_not_take(changes, error):
   args = _args(**changes)
-  before = group_norm_cuda.launches
+  before = group_norm_cuda.KERNEL.launches
   with pytest.raises(error):
     group_norm_cuda.group_norm(args.pop("x"), args.pop("weight"),
                                args.pop("bias"), args.pop("eps"), **args)
-  assert group_norm_cuda.launches == before
+  assert group_norm_cuda.KERNEL.launches == before
 
 
 @pytest.mark.parametrize("epilogue", ["none", "relu6", "residual"])
@@ -176,7 +176,7 @@ def test_wrapper_runs_the_plain_version_on_cpu(epilogue):
                residual=(torch.randn(2, 16, 5, 5) if epilogue == "residual"
                          else None))
   x, weight, bias = args["x"], args["weight"], args["bias"]
-  before = group_norm_cuda.launches
+  before = group_norm_cuda.KERNEL.launches
   got = group_norm_cuda.group_norm(x, weight, bias, 1e-6,
                                    relu6=args["relu6"],
                                    residual=args["residual"])
@@ -186,4 +186,4 @@ def test_wrapper_runs_the_plain_version_on_cpu(epilogue):
   if epilogue == "residual":
     want = args["residual"] + want
   assert torch.equal(got, want)
-  assert group_norm_cuda.launches == before
+  assert group_norm_cuda.KERNEL.launches == before

@@ -15,23 +15,15 @@ same fused multiply-adds, and the host's 1 / sqrtf stands in for CUDA's
 rsqrtf on both, so they agree bit for bit.  Skips without g++.
 """
 
-import ctypes
-import os
-import re
-import shutil
-import subprocess
-
 import numpy as np
 import pytest
 import torch
 
 from oatomobile_torch.ops import group_norm_cuda
+from torch_port_helpers import emulated_library
 
 torch.set_num_threads(1)
 
-HEADER_DIR = os.path.join(os.path.dirname(__file__), "cuda_emulation")
-# Each launch `k<...><<<grid, block, smem, stream>>>(args)` of the source.
-LAUNCH = re.compile(r"(\w+(?:<[^<>;]*>)?)<<<([^>]*)>>>\(([^;]*)\);")
 EPS = 1e-6
 WARP = 32
 
@@ -39,25 +31,12 @@ WARP = 32
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
   """The kernel's library built from ``csrc/group_norm.cu`` for the host."""
-  if shutil.which("g++") is None:
-    pytest.skip("needs g++ to build the kernel's source for the CPU")
-  with open(group_norm_cuda.SOURCE) as fp:
-    source = fp.read()
-  assert len(LAUNCH.findall(source)) == 3
-  source = LAUNCH.sub(r"emulate_launch(\1, \2, \3);", source)
-  work = tmp_path_factory.mktemp("group_norm_emulated")
-  unit = work / "group_norm_emulated.cc"
-  unit.write_text(
-      "#include <cuda_runtime.h>\n"
-      "inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }\n"
+  return emulated_library(
+      group_norm_cuda.KERNEL, tmp_path_factory.mktemp("group_norm_emulated"),
+      launches=3,
+      prelude="inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }\n"
       "namespace { alignas(16) float4 smem4[1 << 10]; }\n"
-      "std::size_t emulated_smem_bytes() { return sizeof(smem4); }\n" +
-      source)
-  library = work / "libgroup_norm_emulated.so"
-  subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off",
-                  "-shared", "-fPIC", "-pthread", "-I", HEADER_DIR, "-o",
-                  str(library), str(unit)], check=True)
-  return group_norm_cuda.declare(ctypes.CDLL(str(library)))
+      "std::size_t emulated_smem_bytes() { return sizeof(smem4); }\n")
 
 
 # -- PyTorch's CUDA GroupNorm, restated in numpy --------------------------------

@@ -230,12 +230,12 @@ def _inputs(B=2, nw=3, nr=2, nv=4, dtype=torch.float32):
 
 
 def test_wrapper_routes_cpu_tensors_to_plain_version():
-  before = bev_cuda.launches
+  before = bev_cuda.KERNEL.launches
   inputs = _inputs()
   out = bev_cuda.splat_lidar_batch(*inputs)
   assert out.shape == (2, 200, 200, 2) and out.dtype == torch.float32
   assert torch.equal(out, bev_cuda.splat_lidar_batch_reference(*inputs))
-  assert bev_cuda.launches == before  # no kernel ran
+  assert bev_cuda.KERNEL.launches == before  # no kernel ran
 
 
 @pytest.mark.parametrize("bad", ["dtype", "rank", "batch", "width",
@@ -260,9 +260,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 def test_kernel_source_is_plain_cuda():
   source = ""
-  for path in (bev_cuda.SOURCE, *bev_cuda.HEADERS):
+  for path in (bev_cuda.KERNEL.source, *bev_cuda.KERNEL.headers):
     with open(path) as fp:
       source += fp.read()
   assert "#include <torch/" not in source
   assert "__fmul_rn" in source and 'extern "C"' in source
-  assert "sm_90a" in " ".join(bev_cuda.NVCC_FLAGS)
+  assert "sm_90a" in " ".join(bev_cuda.KERNEL.flags)

@@ -82,9 +82,9 @@ def card(request):
 
 def test_captured_step_equals_the_eager_loop(card):
   env = CARLANavEnv(**NAV_KWARGS, sensors=SENSORS, device="cpu")
-  bev_cuda.launches = 0
+  bev_cuda.KERNEL.launches = 0
   got = _drive(env)
-  launches = bev_cuda.launches
+  launches = bev_cuda.KERNEL.launches
   want = _eager(env.simulator)
   assert len(got) == len(want)
   for (obs, _, _), eager in zip(got, want):

@@ -1,9 +1,21 @@
 """Shared helpers of the tests that hold oatomobile_torch against
-oatomobile_tpu: numpy views of JAX pytrees and field-wise comparison."""
+oatomobile_tpu: numpy views of JAX pytrees and field-wise comparison, and
+the host build of a CUDA kernel's source."""
 
+import ctypes
 import dataclasses
+import os
+import re
+import shutil
 
 import numpy as np
+import pytest
+
+from oatomobile_torch.native import build
+
+CUDA_EMULATION = os.path.join(os.path.dirname(__file__), "cuda_emulation")
+# Each launch `k<...><<<grid, block, smem, stream>>>(args)` of a source.
+LAUNCH = re.compile(r"(\w+(?:<[^<>;]*>)?)<<<([^>]*)>>>\(([^;]*)\);")
 
 
 def jax_state_to_numpy(state) -> dict:
@@ -67,3 +79,27 @@ def assert_states_match(expected: dict, actual: dict, atol: float,
 def fraction_beyond(a: np.ndarray, b: np.ndarray, atol: float) -> float:
   """Fraction of elements where |a - b| > atol."""
   return float(np.mean(np.abs(np.asarray(a) - np.asarray(b)) > atol))
+
+
+def emulated_library(kernel, tmp_dir, *, launches: int,
+                     prelude: str) -> ctypes.CDLL:
+  """``kernel``'s CUDA source (a ``native.nvcc.Kernel``) built by g++ for
+  the CPU into ``tmp_dir``, each CUDA thread a host thread
+  (``cuda_emulation/cuda_runtime.h``): its ``launches`` launches rewritten
+  as ``emulate_launch`` calls, ``prelude`` (the shared memory and what the
+  host lacks) before it; loaded and declared.  Skips without g++."""
+  if shutil.which("g++") is None:
+    pytest.skip("needs g++ to build the kernel's source for the CPU")
+  with open(kernel.source) as fp:
+    source = fp.read()
+  assert len(LAUNCH.findall(source)) == launches
+  unit = os.path.join(str(tmp_dir), kernel.name + "_emulated.cc")
+  with open(unit, "w") as fp:
+    fp.write("#include <cuda_runtime.h>\n" + prelude +
+             LAUNCH.sub(r"emulate_launch(\1, \2, \3);", source))
+  library = os.path.join(str(tmp_dir), "lib{}_emulated.so".format(
+      kernel.name))
+  build.compile_library(["g++", "-std=c++20", "-O1", "-ffp-contract=off",
+                         "-shared", "-fPIC", "-pthread", "-I",
+                         CUDA_EMULATION], unit, library)
+  return kernel.declare(ctypes.CDLL(library))
