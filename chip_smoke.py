@@ -2,15 +2,16 @@
 """Chip smoke test of the PyTorch/CUDA port (``oatomobile_torch``).
 
     python3 chip_smoke.py [--prev-splat PATH ...] [--probe-rounds N]
-                          [--dim-plan] [--group-norm]
+                          [--dim-plan] [--group-norm] [--depthwise]
 
 Needs one CUDA card and the CUDA toolkit (nvcc).  It:
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds every kernel of the main path from the sources in this
      checkout (the BEV splat, csrc/bev_splat.cu; the DIM planner,
-     csrc/dim_plan.cu; the encoder's GroupNorm, csrc/group_norm.cu) and
-     prints the build time, what ptxas reports and
+     csrc/dim_plan.cu; the encoder's GroupNorm, csrc/group_norm.cu, and
+     depthwise convolutions, csrc/depthwise_conv.cu) and prints the build
+     time, what ptxas reports and
      the loops of each kernel's SASS (cuobjdump);
   3. holds each kernel against its plain PyTorch version on the card: on
      the inputs the main path gives it (Town01, 16 NPCs, after 20 autopilot
@@ -46,9 +47,10 @@ Needs one CUDA card and the CUDA toolkit (nvcc).  It:
      ``make_dim_policy(ImitativeModel((4, 2), (100, 100)),
      num_plan_steps=20)``, float32 encoder, ``compute=()``: a short warm-up
      rollout, then a timed one with the kernels' launch counts set to 0
-     just before it and read just after (one splat, one planner and 52
-     GroupNorm launches a step), and the stages of one policy call
-     (observe, encoder, planner, bridge) on CUDA events; then the DIM planner kernel on that
+     just before it and read just after (one splat, one planner, 52
+     GroupNorm and 17 depthwise launches a step), and the stages of one
+     policy call (observe, encoder, planner, bridge) on CUDA events; then
+     the DIM planner kernel on that
      path's inputs (``check_dim_plan``): its plan equal to the autograd
      path's bit for bit and against the plain version (at most
      DIM_PLAN_APART scenes apart),
@@ -59,7 +61,8 @@ Needs one CUDA card and the CUDA toolkit (nvcc).  It:
      ENTRY_RTOL) and its ``capture`` replays against the eager call, bit
      for bit, over ENTRY_CALLS calls on new inputs; then the encoder's
      GroupNorm kernel (``check_group_norm``, as ``--group-norm`` below)
-     and its launches on the DIM, RIP, CIL and training paths;
+     and its depthwise kernel (``check_depthwise``, as ``--depthwise``),
+     and each one's launches on the DIM, RIP, CIL and training paths;
  10. holds the batched evaluator on the card against the CPU: two CoRL2017
      Town02 tasks at their configured 100 NPCs, 2 episodes each, through
      ``evaluate_batched`` with the autopilot for 30 steps (per episode
@@ -237,8 +240,21 @@ inputs, the time of the 52 launches of one forward beside their bound,
 the plain version and PyTorch's ``F.group_norm`` + ``F.relu6``; then the
 DIM path as in phase 9 (its launches counted from 0 over the timed
 rollout), and the kernel's launches on the RIP path at 1024 scenes, a CIL
-forward and the training update and loss (``group_norm_launch_counts``);
+forward and the training update and loss (``encoder_launch_counts``);
 it prints the kernel's JSON line.
+
+``--depthwise`` builds the kernels, then runs only the encoder's depthwise
+kernel (``check_depthwise``): at each of the encoder's 17 depthwise
+shapes at 1024 scenes and at 1 (100 x 100 input), and at 1024 scenes on
+32 x 32 and 128 x 128 inputs, its output against the program's PyTorch
+path (``perception.same_conv``: ``F.pad`` where uneven, ``F.conv2d``) and
+against the plain version bit for bit, a whole encoder forward at 1024
+scenes against the same forward on PyTorch's path (and the ``F.pad``
+calls of each: the stem's alone with the kernel), one graph replay
+against the eager call, the time of the 17 launches of one forward
+(graph replays) by map size beside their bound, the plain version and
+PyTorch's path; then the DIM path and the kernel's launches as for
+``--group-norm``, and it prints the kernel's JSON line.
 
 ``--probe-rounds N`` builds the kernel, then runs only phases 10 and 11
 above (the evaluator's check, the route check and the CARNOVEL runs) N
@@ -285,10 +301,11 @@ DIM_PLAN_ATOL, DIM_PLAN_APART = 1e-4, 3
 # does them (the DIM step's FLOPs less the encoder's: ~7.7 GFLOP at 1024
 # scenes): the planner's bound by that count.
 DIM_PLAN_FROZEN_FLOP = 7.7e9
-# The encoder's GroupNorm kernel: launches of one MobileNetV2 forward, and
-# the steps of the RIP rollout that counts them.
+# The encoder's GroupNorm and depthwise kernels: launches of one
+# MobileNetV2 forward, and the steps of the RIP rollout that counts them.
 GROUP_NORM_PER_FORWARD = 52
-GROUP_NORM_COUNT_STEPS = 6
+DEPTHWISE_PER_FORWARD = 17
+ENCODER_COUNT_STEPS = 6
 
 # The evaluator on the card against the CPU: two CoRL2017 Town02 tasks,
 # 2 episodes each; the autopilot's and RIP's horizons and distance limits
@@ -712,14 +729,15 @@ def check_entry() -> None:
          "captured once")
 
 
-def drive_dim_path() -> tuple:
-  """The DIM closed loop at full width; returns the splat's, the planner's
-  and the encoder's GroupNorm kernel's launches in the timed rollout."""
+def drive_dim_path() -> dict:
+  """The DIM closed loop at full width; returns each kernel's launches in
+  the timed rollout, by name (one splat and one plan a step, and the
+  encoder's GroupNorm and depthwise kernels once a layer a step)."""
   import torch  # pylint: disable=import-outside-toplevel
   from oatomobile_torch import bench  # pylint: disable=import-outside-toplevel
   from oatomobile_torch.envs.batched import BatchedEnv  # pylint: disable=import-outside-toplevel
-  from oatomobile_torch.ops import bev_cuda, dim_plan_cuda, group_norm_cuda  # pylint: disable=import-outside-toplevel
   from oatomobile_torch import graphs  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.native import nvcc  # pylint: disable=import-outside-toplevel
   from oatomobile_torch.utils import profiling  # pylint: disable=import-outside-toplevel
   env = BatchedEnv(TOWN, BATCH, num_vehicles=VEHICLES, route_capacity=1024,
                    seed=0, device="cuda")
@@ -732,32 +750,30 @@ def drive_dim_path() -> tuple:
   print("dim path: the step captured in {:.3f}s, {} bytes reserved for its "
         "graph's pool (memory_reserved after the capture less before)".format(
             graphs.capture_seconds, graphs.capture_bytes))
-  kernels = (bev_cuda.KERNEL, dim_plan_cuda.KERNEL, group_norm_cuda.KERNEL)
-  for kernel in kernels:
+  for kernel in nvcc.KERNELS:
     kernel.launches = 0
   profiling.reset()
   t0 = time.perf_counter()
   _, _, s = env.rollout(DIM_STEPS, policy=policy)
   float(s["distance"].sum())  # the fetch waits for the device
   elapsed = time.perf_counter() - t0
-  launches, plan_launches, norm_launches = (k.launches for k in kernels)
+  launches = {kernel.name: kernel.launches for kernel in nvcc.KERNELS}
   s = {k: v.cpu() for k, v in s.items()}
   finite = all(bool(torch.isfinite(v.float()).all()) for v in s.values())
   print("dim path: {} x {} steps in {:.3f}s = {:.1f} env steps/s ({:.2f} "
         "ms a step of graph replays; warm-up {} steps {:.1f}s, the capture "
-        "included); bev_splat launches={}, dim_plan launches={}, "
-        "group_norm launches={} for {} steps; stats finite={} "
+        "included); launches {} for {} steps; stats finite={} "
         "distance_mean={:.2f}m episodes={} collisions={}".format(
             BATCH, DIM_STEPS, elapsed, BATCH * DIM_STEPS / elapsed,
             1e3 * elapsed / DIM_STEPS, DIM_WARMUP_STEPS, warmup, launches,
-            plan_launches, norm_launches, DIM_STEPS, finite,
-            float(s["distance"].mean()), int(s["episodes"].sum()),
-            int(s["collisions"].sum())))
-  if (launches != DIM_STEPS or plan_launches != DIM_STEPS or
-      norm_launches != GROUP_NORM_PER_FORWARD * DIM_STEPS):
-    fail("bev_splat / dim_plan / group_norm launched {} / {} / {} times in "
-         "{} DIM steps".format(launches, plan_launches, norm_launches,
-                               DIM_STEPS))
+            DIM_STEPS, finite, float(s["distance"].mean()),
+            int(s["episodes"].sum()), int(s["collisions"].sum())))
+  want = {"bev_splat": DIM_STEPS, "dim_plan": DIM_STEPS,
+          "group_norm": GROUP_NORM_PER_FORWARD * DIM_STEPS,
+          "depthwise_conv": DEPTHWISE_PER_FORWARD * DIM_STEPS}
+  if launches != want:
+    fail("the kernels launched {} times in {} DIM steps, not {}".format(
+        launches, DIM_STEPS, want))
   if not finite or not bool((s["distance"] > 0).any()):
     fail("DIM path stats are not finite or no scene moved")
   stages = {k: v for k, v in bench.mark_medians(profiling.snapshot()).items()
@@ -766,7 +782,7 @@ def drive_dim_path() -> tuple:
         "replayed step): {}".format(
             BATCH, ", ".join("{} {:.3f} ms".format(k, v)
                              for k, v in stages.items())))
-  return launches, plan_launches, norm_launches
+  return launches
 
 
 def dim_plan_flop(batch: int, horizon: int, num_steps: int) -> float:
@@ -1085,62 +1101,281 @@ def check_group_norm() -> dict:
           "z_equal": z_equal}
 
 
-def group_norm_launch_counts(dim_launches: int) -> dict:
-  """The GroupNorm kernel's launches a step or a call: the DIM policy's
+def encoder_depthwise(size: int = 100) -> list:
+  """(C, H, W, stride, padding) of the encoder's depthwise convolutions in
+  order, on a size x size input: one forward of a MobileNetV2 at batch 1
+  on the CPU records each one's input (padding: top, bottom, left,
+  right)."""
+  import torch  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.models import perception  # pylint: disable=import-outside-toplevel
+  model = perception.MobileNetV2(device="cpu")
+  calls = []
+
+  def record(conv, args):
+    x, = args
+    calls.append((x.shape[1], x.shape[2], x.shape[3], conv.stride[0],
+                  conv.same_padding(x)))
+
+  hooks = [block.depthwise.register_forward_pre_hook(record)
+           for block in model.modules()
+           if isinstance(block, perception.InvertedResidual)]
+  with torch.no_grad():
+    model(torch.zeros(1, 2, size, size))
+  for hook in hooks:
+    hook.remove()
+  return calls
+
+
+def depthwise_case(batch: int, shape: tuple, seed: int) -> tuple:
+  """(x, weight) on the card for one of the encoder's depthwise layers,
+  with per-channel spreads."""
+  import torch  # pylint: disable=import-outside-toplevel
+  c, h, w, _, _ = shape
+  g = torch.Generator(device="cuda").manual_seed(seed)
+  spread = 0.1 + 3 * torch.rand(1, c, 1, 1, generator=g, device="cuda")
+  x = torch.randn(batch, c, h, w, generator=g, device="cuda") * spread
+  weight = 0.5 * torch.randn(c, 1, 3, 3, generator=g, device="cuda")
+  return x, weight
+
+
+def depthwise_bytes(batch: int, shapes: list) -> int:
+  """Bytes the kernel must move for ``shapes`` at ``batch``: x read once,
+  y written once (the nine weights a channel left out)."""
+  from oatomobile_torch.ops import depthwise_cuda  # pylint: disable=import-outside-toplevel
+  total = 0
+  for c, h, w, stride, (top, bottom, left, right) in shapes:
+    ho = depthwise_cuda.output_size(h, stride, top, bottom)
+    wo = depthwise_cuda.output_size(w, stride, left, right)
+    total += 4 * batch * c * (h * w + ho * wo)
+  return total
+
+
+def replay_of(fn):
+  """``fn`` (after one eager call) captured in a CUDA graph; returns the
+  graph's replay, so that timing it reads device time alone."""
+  import torch  # pylint: disable=import-outside-toplevel
+  fn()
+  torch.cuda.synchronize()
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    fn()
+  return graph.replay
+
+
+def check_depthwise() -> dict:
+  """The encoder's depthwise kernel against PyTorch on the card: at each
+  of the encoder's depthwise shapes at BATCH scenes and at 1 (and at BATCH
+  on 32 x 32 and 128 x 128 inputs), its output bit for bit against the
+  program's PyTorch path (``perception.same_conv``: ``F.pad`` where the
+  padding is uneven, then ``F.conv2d``) and against the plain version; a
+  whole MobileNetV2 forward at BATCH with the kernel against the same
+  forward with the depthwise layers on PyTorch's path (and the ``F.pad``
+  calls of each); one graph replay against the eager call; then the time
+  of one forward's 17 launches (CUDA events around 20 back-to-back replays
+  of a graph of them, median of 21), split by map size, beside their
+  bound, the plain version and PyTorch's path.  Returns its line of the
+  kernels JSON."""
+  import torch  # pylint: disable=import-outside-toplevel
+  import torch.nn.functional as F  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.models import perception  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import depthwise_cuda as dw  # pylint: disable=import-outside-toplevel
+  shapes = encoder_depthwise()
+  small, large = encoder_depthwise(32), encoder_depthwise(128)
+  if len(shapes) != DEPTHWISE_PER_FORWARD:
+    fail("the encoder has {} depthwise layers, not {}".format(
+        len(shapes), DEPTHWISE_PER_FORWARD))
+  lib = dw.KERNEL.library()
+  stream = torch.cuda.current_stream().cuda_stream
+  verdicts = {}
+  for batch, size, checked in ((BATCH, 100, shapes), (1, 100, shapes),
+                               (BATCH, 32, small), (BATCH, 128, large)):
+    apart = []
+    for i, shape in enumerate(checked):
+      x, weight = depthwise_case(batch, shape, i)
+      c, h, w, stride, padding = shape
+      y = dw.launch(lib, x, weight, stride, padding, stream)
+      want = perception.same_conv(x, weight, stride, padding, groups=c)
+      plain = dw.depthwise_reference(x, weight, stride, padding)
+      torch.cuda.synchronize()
+      got = (int((y != want).sum()), int((y != plain).sum()))
+      if any(got):
+        apart.append("{}x{}x{} s{} {}: {} differ from PyTorch's (max {}), {} "
+                     "from the plain version".format(
+                         c, h, w, stride, padding, got[0],
+                         float((y - want).abs().max()), got[1]))
+      del x, weight, y, want, plain
+    key = "B={} input {}".format(batch, size)
+    verdicts[key] = len(checked) - len(apart)
+    print("check depthwise {}: output equal to PyTorch's (F.pad where "
+          "uneven, F.conv2d) and to the plain version bit for bit at {} of "
+          "{} shapes (maps {} to {}){}".format(
+              key, verdicts[key], len(checked),
+              min(h for _, h, _, _, _ in checked),
+              max(h for _, h, _, _, _ in checked),
+              "; " + "; ".join(apart) if apart else ""))
+  # A whole encoder forward, the kernel against PyTorch's path, and the
+  # F.pad calls of each (the stem's alone with the kernel).
+  g = torch.Generator(device="cuda").manual_seed(7)
+  model = perception.MobileNetV2(device="cuda").requires_grad_(False)
+  for m in model.modules():
+    if isinstance(m, torch.nn.GroupNorm):
+      m.weight.copy_(1 + 0.5 * torch.randn(m.weight.shape, generator=g,
+                                           device="cuda"))
+      m.bias.copy_(torch.randn(m.bias.shape, generator=g, device="cuda"))
+  images = torch.rand(BATCH, 2, 100, 100, generator=g, device="cuda")
+  pad, engages = F.pad, dw.engages
+  pads = []
+
+  def counting_pad(*args, **kwargs):
+    pads.append(args[1])
+    return pad(*args, **kwargs)
+
+  F.pad = counting_pad
+  try:
+    before = dw.KERNEL.launches
+    with torch.no_grad():
+      z = model(images)
+    launched = dw.KERNEL.launches - before
+    pads_kernel, pads[:] = list(pads), []
+    dw.engages = lambda x: False
+    with torch.no_grad():
+      z_plain = model(images)
+    pads_plain = list(pads)
+  finally:
+    F.pad, dw.engages = pad, engages
+  torch.cuda.synchronize()
+  forward_equal = torch.equal(z, z_plain)
+  # One launch captured in a CUDA graph, replayed on new inputs.
+  shape = shapes[1]
+  static = list(depthwise_case(64, shape, 100))
+  graph = torch.cuda.CUDAGraph()
+  dw.depthwise(*static, shape[3], shape[4])
+  torch.cuda.synchronize()
+  with torch.cuda.graph(graph):
+    captured = dw.depthwise(*static, shape[3], shape[4])
+  fresh = depthwise_case(64, shape, 101)
+  static[0].copy_(fresh[0])
+  graph.replay()
+  eager = dw.depthwise(fresh[0], static[1], shape[3], shape[4])
+  torch.cuda.synchronize()
+  replay_equal = torch.equal(captured, eager)
+  del graph, model, images, z, z_plain
+  print("check depthwise: encoder forward at B={} through the kernel ({} "
+        "launches) equal to PyTorch's path bit for bit {}; F.pad calls "
+        "with the kernel {}, on PyTorch's path {}; graph replay equal to "
+        "the eager call {}".format(BATCH, launched, forward_equal,
+                                   pads_kernel, pads_plain, replay_equal))
+  if (sum(verdicts.values()) != 2 * len(shapes) + len(small) + len(large)
+      or not forward_equal or not replay_equal or
+      launched != DEPTHWISE_PER_FORWARD or len(pads_kernel) != 1 or
+      len(pads_plain) != 2):
+    fail("the depthwise kernel disagrees with PyTorch's convolution")
+
+  cases = [(depthwise_case(BATCH, shape, i), shape)
+           for i, shape in enumerate(shapes)]
+
+  def kernel_pass(sub=cases):
+    for (x, weight), (_, _, _, stride, padding) in sub:
+      dw.depthwise(x, weight, stride, padding)
+
+  def plain_pass():
+    for (x, weight), (_, _, _, stride, padding) in cases:
+      dw.depthwise_reference(x, weight, stride, padding)
+
+  def library_pass():
+    for (x, weight), (c, _, _, stride, padding) in cases:
+      perception.same_conv(x, weight, stride, padding, groups=c)
+
+  before = dw.KERNEL.launches
+  ms = cuda_ms(replay_of(kernel_pass), calls=20)
+  eager_ms = cuda_ms(kernel_pass, calls=20)
+  library_ms = cuda_ms(replay_of(library_pass), calls=20)
+  plain_ms = cuda_ms(plain_pass, calls=1, reps=3)
+  by_size = {}
+  for case in cases:
+    by_size.setdefault("{0}x{0}".format(case[1][1]), []).append(case)
+  split = {size: cuda_ms(replay_of(lambda sub=sub: kernel_pass(sub)),
+                         calls=20) for size, sub in by_size.items()}
+  split_bound = {size: 1e3 * depthwise_bytes(BATCH, [s for _, s in sub]) /
+                 PEAK_BYTES_PER_S for size, sub in by_size.items()}
+  dw.KERNEL.launches = before
+  nbytes = depthwise_bytes(BATCH, shapes)
+  bound_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+  print("timing depthwise B={} (the encoder's {} depthwise layers, one "
+        "forward, graph replays): kernel {:.4f} ms (eager calls {:.4f}; by "
+        "input map {}), plain version {:.4f} ms, PyTorch's F.pad + F.conv2d "
+        "{:.4f} ms; bound {:.4f} ms ({:.3f} GB at 3.35 TB/s); {:.1f}% of its "
+        "bound".format(
+            BATCH, len(shapes), ms, eager_ms, ", ".join(
+                "{} {:.4f} ms ({:.0f}% of {:.4f})".format(
+                    k, v, 100 * split_bound[k] / v, split_bound[k])
+                for k, v in split.items()),
+            plain_ms, library_ms, bound_ms, nbytes / 1e9,
+            100 * bound_ms / ms))
+  return {"name": "depthwise_conv",
+          "status": "new (replaces no Pallas kernel)", "route": "cuda",
+          "source": "oatomobile_torch/csrc/depthwise_conv.cu",
+          "replaces": None, "ms": ms, "eager_ms": eager_ms,
+          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+          "library_ms": library_ms, "ms_by_map": split,
+          "shapes_equal": verdicts, "forward_equal": forward_equal,
+          "replay_equal": replay_equal}
+
+
+def encoder_launch_counts(kernel, per_forward: int,
+                          dim_launches: int) -> dict:
+  """An encoder kernel's launches a step or a call: the DIM policy's
   captured step (``dim_launches``, those of ``drive_dim_path``'s timed
-  rollout), the RIP-WCM policy's (GROUP_NORM_COUNT_STEPS steps at BATCH
+  rollout), the RIP-WCM policy's (ENCODER_COUNT_STEPS steps at BATCH
   Town01 scenes, after a warm-up that captures the step), a CIL model's
   forward under no_grad, one DIM training update (autograd on: none) and
   the trainer's no-grad evaluation loss, each counted from 0; fails where
-  they are not 52 a forward."""
+  they are not ``per_forward`` a forward."""
   import torch  # pylint: disable=import-outside-toplevel
-  from oatomobile_torch import bench  # pylint: disable=import-outside-toplevel
   from oatomobile_torch import rng as rng_lib  # pylint: disable=import-outside-toplevel
   from oatomobile_torch.baselines.learned.dim import train as dim_train  # pylint: disable=import-outside-toplevel
   from oatomobile_torch.baselines.learned.rip.policy import make_rip_policy  # pylint: disable=import-outside-toplevel
   from oatomobile_torch.envs.batched import BatchedEnv  # pylint: disable=import-outside-toplevel
   from oatomobile_torch.models import BehaviouralModel, ImitativeModel  # pylint: disable=import-outside-toplevel
-  from oatomobile_torch.ops import group_norm_cuda as gn  # pylint: disable=import-outside-toplevel
   from oatomobile_torch.parallel import dp  # pylint: disable=import-outside-toplevel
   counts = {"dim_step": dim_launches / DIM_STEPS}
   policy = make_rip_policy(rip_ensemble(), algorithm="WCM")
   env = BatchedEnv(TOWN, BATCH, num_vehicles=VEHICLES, route_capacity=1024,
                    seed=0, device="cuda")
   env.rollout(DIM_WARMUP_STEPS, policy=policy)
-  gn.KERNEL.launches = 0
-  _, _, s = env.rollout(GROUP_NORM_COUNT_STEPS, policy=policy)
+  kernel.launches = 0
+  _, _, s = env.rollout(ENCODER_COUNT_STEPS, policy=policy)
   float(s["distance"].sum())
-  counts["rip_step"] = gn.KERNEL.launches / GROUP_NORM_COUNT_STEPS
+  counts["rip_step"] = kernel.launches / ENCODER_COUNT_STEPS
   del env, policy
   cil = BehaviouralModel((40, 2), (100, 100), device="cuda")
   context = {"visual_features": torch.rand(2, 2, 100, 100, device="cuda"),
              **{k: torch.zeros(2, n, device="cuda") for k, n in (
                  ("velocity", 3), ("is_at_traffic_light", 1),
                  ("traffic_light_state", 1), ("mode", 1))}}
-  gn.KERNEL.launches = 0
+  kernel.launches = 0
   with torch.no_grad():
     cil(**context)
-  counts["cil_forward"] = gn.KERNEL.launches
+  counts["cil_forward"] = kernel.launches
   model = ImitativeModel((4, 2), UPDATE_INPUT, device="cuda")
   loss_fn = dim_train.make_loss_fn()
   state = dp.TrainState.create(model, dp.adam(model, 1e-3),
                                rng_lib.PRNGKey(7, "cuda"))
   batch = update_batch(8)
-  gn.KERNEL.launches = 0
+  kernel.launches = 0
   dp.make_update_fn(loss_fn)(state, batch)
-  counts["train_update"] = gn.KERNEL.launches
-  gn.KERNEL.launches = 0
+  counts["train_update"] = kernel.launches
+  kernel.launches = 0
   dim_train.eval_loss(loss_fn, model, batch)
-  counts["train_eval_loss"] = gn.KERNEL.launches
+  counts["train_eval_loss"] = kernel.launches
   torch.cuda.synchronize()
-  want = {"dim_step": GROUP_NORM_PER_FORWARD,
-          "rip_step": RIP_MEMBERS * GROUP_NORM_PER_FORWARD,
-          "cil_forward": GROUP_NORM_PER_FORWARD, "train_update": 0,
-          "train_eval_loss": GROUP_NORM_PER_FORWARD}
-  print("group_norm launches: {} (want {})".format(counts, want))
+  want = {"dim_step": per_forward, "rip_step": RIP_MEMBERS * per_forward,
+          "cil_forward": per_forward, "train_update": 0,
+          "train_eval_loss": per_forward}
+  print("{} launches: {} (want {})".format(kernel.name, counts, want))
   if counts != want:
-    fail("the group_norm kernel launched {} times, not {}".format(counts,
-                                                                  want))
+    fail("the {} kernel launched {} times, not {}".format(kernel.name,
+                                                          counts, want))
   return counts
 
 
@@ -3132,6 +3367,10 @@ def main() -> None:
                       help="run only the encoder's GroupNorm kernel's check "
                       "and timing and its launches on the DIM, RIP, CIL and "
                       "training paths, and stop")
+  parser.add_argument("--depthwise", action="store_true",
+                      help="run only the encoder's depthwise kernel's check "
+                      "and timing and its launches on the DIM, RIP, CIL and "
+                      "training paths, and stop")
   args = parser.parse_args()
   try:
     import torch  # pylint: disable=import-outside-toplevel
@@ -3145,7 +3384,7 @@ def main() -> None:
     from oatomobile_torch.envs.batched import BatchedEnv  # pylint: disable=import-outside-toplevel
     from oatomobile_torch.native import nvcc  # pylint: disable=import-outside-toplevel
     # Each kernel's wrapper makes its Kernel, built below in this order.
-    from oatomobile_torch.ops import bev, bev_cuda, dim_plan_cuda, group_norm_cuda  # pylint: disable=import-outside-toplevel,unused-import
+    from oatomobile_torch.ops import bev, bev_cuda, depthwise_cuda, dim_plan_cuda, group_norm_cuda  # pylint: disable=import-outside-toplevel,unused-import
   except ImportError as exc:
     fail("oatomobile_torch not found next to this script ({})".format(exc))
   if "jax" in sys.modules or "oatomobile_tpu" in sys.modules:
@@ -3178,7 +3417,7 @@ def main() -> None:
     print_build(name, bev_cuda.KERNEL, library)
   if args.dim_plan:
     kernel = check_dim_plan()
-    kernel["launches_dim"] = drive_dim_path()[1]
+    kernel["launches_dim"] = drive_dim_path()["dim_plan"]
     kernel["launches_captured_agents"] = compare_captured_agents()[1]
     from oatomobile_torch.baselines.learned.rip.policy import make_rip_policy  # pylint: disable=import-outside-toplevel
     drive_carnovel("rip-wcm K={}".format(RIP_MEMBERS),
@@ -3190,7 +3429,17 @@ def main() -> None:
     return
   if args.group_norm:
     kernel = check_group_norm()
-    kernel["launches"] = group_norm_launch_counts(drive_dim_path()[2])
+    kernel["launches"] = encoder_launch_counts(
+        group_norm_cuda.KERNEL, GROUP_NORM_PER_FORWARD,
+        drive_dim_path()["group_norm"])
+    print("total: {:.1f}s".format(time.perf_counter() - t_start))
+    print(json.dumps({"kernels": [kernel]}))
+    return
+  if args.depthwise:
+    kernel = check_depthwise()
+    kernel["launches"] = encoder_launch_counts(
+        depthwise_cuda.KERNEL, DEPTHWISE_PER_FORWARD,
+        drive_dim_path()["depthwise_conv"])
     print("total: {:.1f}s".format(time.perf_counter() - t_start))
     print(json.dumps({"kernels": [kernel]}))
     return
@@ -3337,7 +3586,7 @@ def main() -> None:
   check_dim_card_against_cpu()
 
   # -- 8. The DIM path ------------------------------------------------------------
-  launches_dim, plan_launches_dim, norm_launches_dim = drive_dim_path()
+  dim_launches = drive_dim_path()
 
   lap("DIM check and path")
 
@@ -3347,9 +3596,17 @@ def main() -> None:
 
   # -- 8c. The encoder's GroupNorm kernel against PyTorch ----------------------
   group_norm_kernel = check_group_norm()
-  group_norm_kernel["launches"] = group_norm_launch_counts(
-      norm_launches_dim)
+  group_norm_kernel["launches"] = encoder_launch_counts(
+      group_norm_cuda.KERNEL, GROUP_NORM_PER_FORWARD,
+      dim_launches["group_norm"])
   lap("GroupNorm kernel")
+
+  # -- 8d. The encoder's depthwise kernel against PyTorch -----------------------
+  depthwise_kernel = check_depthwise()
+  depthwise_kernel["launches"] = encoder_launch_counts(
+      depthwise_cuda.KERNEL, DEPTHWISE_PER_FORWARD,
+      dim_launches["depthwise_conv"])
+  lap("depthwise kernel")
 
   # -- 8b. The DIM entry, card against CPU and captured against eager ---------
   check_entry()
@@ -3423,7 +3680,7 @@ def main() -> None:
       "source": "oatomobile_torch/csrc/bev_splat.cu",
       "replaces": "oatomobile_tpu/ops/bev_pallas.py:54",
       "launches": launches,
-      "launches_dim": launches_dim,
+      "launches_dim": dim_launches["bev_splat"],
       "launches_eval_rip": sum(rip_launches.values()),
       "launches_single_scene": launches_single,
       "launches_collect": launches_collect,
@@ -3446,9 +3703,9 @@ def main() -> None:
       "library_ms": None,
       "prev_ms": ms_of[next(iter(prevs))] if prevs else None,
       "fill_ms": fill_ms,
-  }, dict(dim_plan_kernel, launches_dim=plan_launches_dim,
+  }, dict(dim_plan_kernel, launches_dim=dim_launches["dim_plan"],
           launches_captured_agents=plan_launches_agents,
-          launches_eval_rip=0), group_norm_kernel]
+          launches_eval_rip=0), group_norm_kernel, depthwise_kernel]
   print("phase seconds: {}".format(", ".join(
       "{} {:.1f}".format(phase, end - start)
       for (_, start), (phase, end) in zip(marks, marks[1:]))))

@@ -14,11 +14,14 @@ flax's GroupNorm takes the variance as E[x^2] - E[x]^2 (clipped at 0);
 rounding (the tests state the tolerance).
 
 Each GroupNorm and what follows it (ReLU6, the residual add or nothing)
-runs as one launch of ``ops/group_norm_cuda``'s kernel where that can
-show nothing but speed: on a float32 CUDA tensor with autograd off (the
-policies' and agents' encoders), at any input size, equal to PyTorch's
-operations bit for bit.  Every other forward (training, the bfloat16
-copy, the CPU) runs ``F.group_norm``, ``F.relu6`` and ``+``.
+runs as one launch of ``ops/group_norm_cuda``'s kernel, and each
+depthwise convolution with its padding as one launch of
+``ops/depthwise_cuda``'s, where that can show nothing but speed: on a
+float32 CUDA tensor with autograd off (the policies' and agents'
+encoders), at any input size, equal to PyTorch's operations bit for bit.
+Every other forward (training, the bfloat16 copy, the CPU) runs
+``F.group_norm``, ``F.relu6`` and ``+``, and ``F.pad`` (where uneven) and
+``F.conv2d``.
 """
 
 import functools
@@ -30,7 +33,7 @@ from torch import nn
 
 from oatomobile_torch import device as device_lib
 from oatomobile_torch.models import initializers
-from oatomobile_torch.ops import group_norm_cuda
+from oatomobile_torch.ops import depthwise_cuda, group_norm_cuda
 
 # (expansion t, channels c, repeats n, stride s) of the JAX package.
 _INVERTED_RESIDUAL_SETTINGS: Sequence[Tuple[int, int, int, int]] = (
@@ -72,25 +75,37 @@ def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
   return total // 2, total - total // 2
 
 
+def same_conv(x: torch.Tensor, weight: torch.Tensor, stride,
+              padding: Tuple[int, int, int, int],
+              groups: int = 1) -> torch.Tensor:
+  """Bias-free ``F.conv2d`` of x with ``padding`` (top, bottom, left,
+  right): symmetric padding goes to the convolution, uneven padding to an
+  explicit ``F.pad``."""
+  top, bottom, left, right = padding
+  if top == bottom and left == right:
+    return F.conv2d(x, weight, None, stride, (top, left), groups=groups)
+  x = F.pad(x, (left, right, top, bottom))
+  return F.conv2d(x, weight, None, stride, 0, groups=groups)
+
+
 class _SameConv(nn.Conv2d):
-  """Bias-free ``nn.Conv2d`` with flax's ``"SAME"`` padding: symmetric
-  padding goes to the convolution, uneven padding to an explicit
-  ``F.pad``."""
+  """Bias-free ``nn.Conv2d`` with flax's ``"SAME"`` padding
+  (``same_conv``)."""
 
   def __init__(self, in_channels: int, out_channels: int, kernel: int,
                stride: int = 1, groups: int = 1) -> None:
     super().__init__(in_channels, out_channels, kernel, stride=stride,
                      groups=groups, bias=False, device="meta")
 
-  def forward(self, x: torch.Tensor) -> torch.Tensor:
+  def same_padding(self, x: torch.Tensor) -> Tuple[int, int, int, int]:
+    """(top, bottom, left, right): flax's ``"SAME"`` padding of x."""
     (kh, kw), (sh, sw) = self.kernel_size, self.stride
-    top, bottom = same_padding(x.shape[-2], kh, sh)
-    left, right = same_padding(x.shape[-1], kw, sw)
-    if top == bottom and left == right:
-      return F.conv2d(x, self.weight, None, self.stride, (top, left),
-                      groups=self.groups)
-    x = F.pad(x, (left, right, top, bottom))
-    return F.conv2d(x, self.weight, None, self.stride, 0, groups=self.groups)
+    return (*same_padding(x.shape[-2], kh, sh),
+            *same_padding(x.shape[-1], kw, sw))
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    return same_conv(x, self.weight, self.stride, self.same_padding(x),
+                     self.groups)
 
 
 class InvertedResidual(nn.Module):
@@ -111,11 +126,20 @@ class InvertedResidual(nn.Module):
     self.project = _SameConv(hidden, out_channels, 1)
     self.project_norm = _norm(out_channels)
 
+  def _depthwise(self, h: torch.Tensor) -> torch.Tensor:
+    """``self.depthwise(h)``: one kernel launch where
+    ``depthwise_cuda.engages(h)``, else PyTorch's operations."""
+    if depthwise_cuda.engages(h):
+      return depthwise_cuda.depthwise(h, self.depthwise.weight,
+                                      self.depthwise.stride[0],
+                                      self.depthwise.same_padding(h))
+    return self.depthwise(h)
+
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     h = x
     if self._expands:
       h = _normalise(self.expand_norm, self.expand(h), relu6=True)
-    h = _normalise(self.depthwise_norm, self.depthwise(h), relu6=True)
+    h = _normalise(self.depthwise_norm, self._depthwise(h), relu6=True)
     return _normalise(self.project_norm, self.project(h),
                       residual=x if self._use_residual else None)
 

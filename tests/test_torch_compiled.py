@@ -25,7 +25,8 @@ from oatomobile_torch.datasets.carla import _resize_quantize
 from oatomobile_torch.envs.batched import BatchedEnv
 from oatomobile_torch.models import ImitativeModel
 from oatomobile_torch.native import nvcc
-from oatomobile_torch.ops import bev_cuda, dim_plan_cuda, group_norm_cuda
+from oatomobile_torch.ops import (bev_cuda, depthwise_cuda, dim_plan_cuda,
+                                  group_norm_cuda)
 from oatomobile_torch.sim import autopilot_policy
 from oatomobile_torch.sim.types import scene_state_to_numpy
 from oatomobile_tpu.envs.batched import BatchedEnv as JaxBatchedEnv
@@ -125,13 +126,15 @@ class FakeCapturedStep(graphs.CapturedStep):
 
 @pytest.fixture
 def fake_card(monkeypatch):
-  """The fake capture in place of the real one, and splat, planner and
-  GroupNorm wrappers that count their CPU calls as the card's wrappers
-  count launches (the encoder routes float32 no-grad forwards to the
-  GroupNorm wrapper as it does on the card)."""
+  """The fake capture in place of the real one, and splat, planner,
+  GroupNorm and depthwise wrappers that count their CPU calls as the
+  card's wrappers count launches (the encoder routes float32 no-grad
+  forwards to the GroupNorm and depthwise wrappers as it does on the
+  card)."""
   reference = bev_cuda.splat_lidar_batch_reference
   plan = dim_plan_cuda.plan
   group_norm = group_norm_cuda.group_norm
+  depthwise = depthwise_cuda.depthwise
 
   def counting_splat(*inputs):
     bev_cuda.KERNEL.launches += 1
@@ -145,6 +148,10 @@ def fake_card(monkeypatch):
     group_norm_cuda.KERNEL.launches += 1
     return group_norm(*args, **kwargs)
 
+  def counting_depthwise(*args, **kwargs):
+    depthwise_cuda.KERNEL.launches += 1
+    return depthwise(*args, **kwargs)
+
   def engages_on_cpu(x):
     return x.dtype == torch.float32 and not torch.is_grad_enabled()
 
@@ -156,6 +163,9 @@ def fake_card(monkeypatch):
   monkeypatch.setattr(group_norm_cuda, "group_norm", counting_group_norm)
   monkeypatch.setattr(group_norm_cuda, "engages", engages_on_cpu)
   monkeypatch.setattr(group_norm_cuda.KERNEL, "launches", 0)
+  monkeypatch.setattr(depthwise_cuda, "depthwise", counting_depthwise)
+  monkeypatch.setattr(depthwise_cuda, "engages", engages_on_cpu)
+  monkeypatch.setattr(depthwise_cuda.KERNEL, "launches", 0)
   FakeCapturedStep.instances = []
   return FakeCapturedStep.instances
 
@@ -239,6 +249,7 @@ def test_dim_policy_rollout_equals_eager(fake_card):
   assert bev_cuda.KERNEL.launches == 5  # the policy's LIDAR, once a step
   assert dim_plan_cuda.KERNEL.launches == 5  # the plan, once a step
   assert group_norm_cuda.KERNEL.launches == 5 * 52  # the encoder's norms
+  assert depthwise_cuda.KERNEL.launches == 5 * 17  # its depthwise layers
   want = _run(eager, False, 5, policy=policy())
   for g, w in zip(got, want):
     assert_trees_equal(g, w)
@@ -260,6 +271,7 @@ def test_rip_policy_rollout_equals_eager(fake_card):
   assert bev_cuda.KERNEL.launches == 3
   assert dim_plan_cuda.KERNEL.launches == 0  # RIP plans over autograd
   assert group_norm_cuda.KERNEL.launches == 3 * 4 * 52  # four encoders a step
+  assert depthwise_cuda.KERNEL.launches == 3 * 4 * 17
   want = _run(eager, False, 3, policy=policy())
   for g, w in zip(got, want):
     assert_trees_equal(g, w)

@@ -348,8 +348,8 @@ def test_group_norm_kernel_equals_pytorch_at_every_encoder_shape(
 
 
 def test_encoder_z_equals_the_reference_bit_for_bit(card):
-  """The DIM model's z through the kernel (52 launches) against the
-  benchmark's plain reference model on the same seeded weights, their
+  """The DIM model's z through the GroupNorm and depthwise kernels (52 and
+  17 launches) against the benchmark's plain reference model on the same seeded weights, their
   GroupNorms' scales and biases drawn anew."""
   from oatomobile_torch.models import ImitativeModel  # pylint: disable=import-outside-toplevel
   from oatomobile_torch.ops import group_norm_cuda as gn  # pylint: disable=import-outside-toplevel
@@ -372,16 +372,18 @@ def test_encoder_z_equals_the_reference_bit_for_bit(card):
            torch.backends.cudnn.allow_tf32)
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
+  from oatomobile_torch.ops import depthwise_cuda as dw  # pylint: disable=import-outside-toplevel
   try:
     with torch.no_grad():
-      before = gn.KERNEL.launches
+      before = gn.KERNEL.launches, dw.KERNEL.launches
       z = program.params_z(**context)
-      launched = gn.KERNEL.launches - before
+      launched = (gn.KERNEL.launches - before[0],
+                  dw.KERNEL.launches - before[1])
       want = reference.params_z(**context)
   finally:
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = flags
-  assert launched == 52
+  assert launched == (52, 17)
   assert torch.equal(z, want)
 
 
@@ -441,4 +443,112 @@ def test_group_norm_kernel_refuses_what_it_does_not_take(card):
   err = gn.KERNEL.library().group_norm_launch(
       x.data_ptr(), w.data_ptr(), b.data_ptr(), None, y.data_ptr(), None,
       None, 4, 2, 25, 1e-6, 2, torch.cuda.current_stream().cuda_stream)
+  assert err != 0
+
+
+# -- The encoder's depthwise kernel --------------------------------------------
+
+
+@pytest.mark.parametrize("batch,size", [(1024, 100), (1, 100), (1024, 32),
+                                        (1024, 128)])
+def test_depthwise_kernel_equals_pytorch_at_every_encoder_shape(
+    card, batch, size):
+  """Every depthwise layer's shape (50 x 50 to 4 x 4 maps at 100 x 100;
+  the 32 x 32 input reaches 1 x 1 maps, the 128 x 128 input 64 x 64 ones):
+  the kernel's output equal to the program's PyTorch path (F.pad where the
+  padding is uneven, then F.conv2d) bit for bit.  The shapes and inputs
+  are chip_smoke.py's."""
+  import chip_smoke  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.models import perception  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import depthwise_cuda as dw  # pylint: disable=import-outside-toplevel
+  shapes = chip_smoke.encoder_depthwise(size)
+  assert len(shapes) == chip_smoke.DEPTHWISE_PER_FORWARD
+  apart = []
+  for i, shape in enumerate(shapes):
+    x, weight = chip_smoke.depthwise_case(batch, shape, i)
+    c, _, _, stride, padding = shape
+    y = dw.depthwise(x, weight, stride, padding)
+    if not torch.equal(y, perception.same_conv(x, weight, stride, padding,
+                                               groups=c)):
+      apart.append(shape)
+  assert not apart
+
+
+def test_encoder_forward_with_the_depthwise_kernel_equals_pytorch(card):
+  """A whole MobileNetV2 forward with the kernel (17 launches) against the
+  same forward with the depthwise layers on PyTorch's path."""
+  from oatomobile_torch.models import MobileNetV2  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import depthwise_cuda as dw  # pylint: disable=import-outside-toplevel
+  g = torch.Generator(device=card).manual_seed(3)
+  model = MobileNetV2(device=card).requires_grad_(False)
+  x = torch.rand(256, 2, 100, 100, generator=g, device=card)
+  before = dw.KERNEL.launches
+  with torch.no_grad():
+    got = model(x)
+  assert dw.KERNEL.launches == before + 17
+  with pytest.MonkeyPatch.context() as mp, torch.no_grad():
+    mp.setattr(dw, "engages", lambda h: False)
+    want = model(x)
+  assert dw.KERNEL.launches == before + 17
+  assert torch.equal(got, want)
+
+
+def test_depthwise_graph_replay_matches_eager_call(card):
+  import chip_smoke  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import depthwise_cuda as dw  # pylint: disable=import-outside-toplevel
+  shape = (96, 50, 50, 2, (0, 1, 0, 1))
+  x, weight = chip_smoke.depthwise_case(64, shape, 1)
+  dw.depthwise(x, weight, 2, shape[4])
+  torch.cuda.synchronize()
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    captured = dw.depthwise(x, weight, 2, shape[4])
+  x.copy_(chip_smoke.depthwise_case(64, shape, 2)[0])
+  graph.replay()
+  eager = dw.depthwise(x, weight, 2, shape[4])
+  torch.cuda.synchronize()
+  assert torch.equal(captured, eager)
+
+
+def test_depthwise_launches_only_without_autograd(card):
+  from oatomobile_torch.baselines.learned.dim.policy import encoder_copy  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.models import ImitativeModel  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import depthwise_cuda as dw  # pylint: disable=import-outside-toplevel
+  model = ImitativeModel(device=card).requires_grad_(False)
+  x = torch.rand(4, 2, 100, 100, device=card)
+  before = dw.KERNEL.launches
+  with torch.no_grad():
+    model.encoder(x)
+  assert dw.KERNEL.launches == before + 17
+  model.encoder(x)  # autograd on: the plain path
+  with torch.no_grad():
+    encoder_copy(model, "bfloat16").encoder(x.to(torch.bfloat16))
+  assert dw.KERNEL.launches == before + 17
+  with torch.no_grad():  # 64 x 64 maps: planes past the tile, in bands
+    model.encoder(torch.rand(2, 2, 160, 160, device=card))
+  assert dw.KERNEL.launches == before + 34
+
+
+def test_depthwise_kernel_refuses_what_it_does_not_take(card):
+  from oatomobile_torch.ops import depthwise_cuda as dw  # pylint: disable=import-outside-toplevel
+  x = torch.randn(2, 16, 5, 5, device=card)
+  w = torch.randn(16, 1, 3, 3, device=card)
+  pad = (1, 1, 1, 1)
+  before = dw.KERNEL.launches
+  with pytest.raises(ValueError):
+    dw.depthwise(x.transpose(2, 3), w, 1, pad)
+  with pytest.raises(ValueError):
+    dw.depthwise(x, torch.randn(16, 1, 5, 5, device=card), 1, pad)
+  with pytest.raises(TypeError):
+    dw.depthwise(x.double(), w, 1, pad)
+  with pytest.raises(ValueError):
+    dw.depthwise(x, w.cpu(), 1, pad)
+  with pytest.raises(ValueError):
+    dw.depthwise(x, w, 3, pad)
+  assert dw.KERNEL.launches == before
+  # The entry point refuses a padding of 3.
+  y = torch.empty(2, 16, 9, 9, device=card)
+  err = dw.KERNEL.library().depthwise_conv_launch(
+      x.data_ptr(), w.data_ptr(), y.data_ptr(), 32, 16, 5, 5, 5, 5, 1, 3, 1,
+      torch.cuda.current_stream().cuda_stream)
   assert err != 0

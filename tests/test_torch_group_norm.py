@@ -16,7 +16,7 @@ import torch
 
 from oatomobile_torch.baselines.learned.dim import policy as dim_policy
 from oatomobile_torch.models import ImitativeModel, MobileNetV2
-from oatomobile_torch.ops import group_norm_cuda
+from oatomobile_torch.ops import depthwise_cuda, group_norm_cuda
 
 torch.set_num_threads(1)
 
@@ -28,8 +28,11 @@ EPILOGUES = {"relu6": 35, "residual": 10, "none": 7}
 @pytest.fixture
 def card_like(monkeypatch):
   """Every tensor says it is on CUDA; returns the epilogues of the calls
-  that reach the wrapper."""
+  that reach the wrapper.  The depthwise layers keep PyTorch's path (their
+  kernel's routing is ``tests/test_torch_depthwise.py``'s), so that the
+  forwards differ by the GroupNorms' routing alone."""
   monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+  monkeypatch.setattr(depthwise_cuda, "engages", lambda x: False)
   calls = []
   wrapper = group_norm_cuda.group_norm
 

@@ -22,6 +22,7 @@ TAIL = ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Each kernel's nvcc flags and library: a change rebuilds another binary.
 COMMANDS = {
     "bev_cuda": ("bev_splat", ARCH + TAIL + ("-I", nvcc.CSRC)),
+    "depthwise_cuda": ("depthwise_conv", ARCH + ("-fmad=false",) + TAIL),
     "dim_plan_cuda": ("dim_plan", ARCH + ("-fmad=false",) + TAIL),
     "group_norm_cuda": ("group_norm", ARCH + ("-fmad=false",) + TAIL),
 }
