@@ -376,6 +376,24 @@ READERS = {
     "rip.planner_replay_ms": ("rip.plan", [
         _sample("rip.plan", 21.0, count=40),
         _sample("rip.plan", 90.0, count=40, profiled=True)], 21.0),
+    "transfuser.observe_replay_ms": ("transfuser.observe", [
+        _sample("transfuser.observe", 7.7), _sample("transfuser.observe", 7.9),
+        _sample("transfuser.observe", 50.0, profiled=True)], 7.8),
+    "transfuser.encoder_replay_ms": ("transfuser.encode", [
+        _sample("transfuser.encode", 296.0, count=4),
+        _sample("transfuser.encode", 298.0, count=4),
+        _sample("transfuser.encode", 900.0, count=4, profiled=True)], 297.0),
+    # Four marks a replayed step, summed by step (150 and 160 ms); a
+    # profiled step and an eager mark left out.
+    "transfuser.fusion_replay_ms": ("transfuser.fuse", [
+        _sample("transfuser.fuse", ms, count=8, index=i)
+        for i, step in enumerate(((10.0, 20.0, 40.0, 80.0),
+                                  (12.0, 22.0, 42.0, 84.0)))
+        for ms in step] + [
+            _sample("transfuser.fuse", 500.0, count=8, index=2,
+                    profiled=True),
+            _sample("transfuser.fuse", 70.0, count=8, index=3,
+                    origin="eager")], 155.0),
     "train.forward_device_ms": ("update.forward", [
         _sample("update.forward", 20.0, origin="eager"),
         _sample("update.forward", 22.0, origin="eager"),
