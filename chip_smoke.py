@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--prev-splat PATH ...] [--probe-rounds N]
                           [--dim-plan] [--group-norm] [--depthwise]
+                          [--fusion-upsample]
 
 Needs one CUDA card and the CUDA toolkit (nvcc).  It:
 
@@ -10,7 +11,8 @@ Needs one CUDA card and the CUDA toolkit (nvcc).  It:
   2. builds every kernel of the main path from the sources in this
      checkout (the BEV splat, csrc/bev_splat.cu; the DIM planner,
      csrc/dim_plan.cu; the encoder's GroupNorm, csrc/group_norm.cu, and
-     depthwise convolutions, csrc/depthwise_conv.cu) and prints the build
+     depthwise convolutions, csrc/depthwise_conv.cu; TransFuser's fusion
+     upsample-and-add, csrc/fusion_upsample.cu) and prints the build
      time, what ptxas reports and
      the loops of each kernel's SASS (cuobjdump);
   3. holds each kernel against its plain PyTorch version on the card: on
@@ -63,6 +65,8 @@ Needs one CUDA card and the CUDA toolkit (nvcc).  It:
      GroupNorm kernel (``check_group_norm``, as ``--group-norm`` below)
      and its depthwise kernel (``check_depthwise``, as ``--depthwise``),
      and each one's launches on the DIM, RIP, CIL and training paths;
+     then TransFuser's fusion upsample-and-add kernel
+     (``check_fusion_upsample``, as ``--fusion-upsample``);
  10. holds the batched evaluator on the card against the CPU: two CoRL2017
      Town02 tasks at their configured 100 NPCs, 2 episodes each, through
      ``evaluate_batched`` with the autopilot for 30 steps (per episode
@@ -256,6 +260,21 @@ against the eager call, the time of the 17 launches of one forward
 PyTorch's path; then the DIM path and the kernel's launches as for
 ``--group-norm``, and it prints the kernel's JSON line.
 
+``--fusion-upsample`` builds the kernels, then runs only TransFuser's
+fusion upsample-and-add kernel (``check_fusion_upsample``): at each of
+the four fusions' shapes (C = 64, 128, 256, 512 at 64, 32, 16, 8 pixels)
+at FUSION_SCENES scenes and at 1, both trunks, and at the other scales of
+FUSION_OTHER_SCALES, its output against PyTorch's ``trunk +
+F.interpolate(anchors, scale_factor=scale, mode="bilinear",
+align_corners=False)`` and against the plain version bit for bit, a whole
+TransFuser encode at FUSION_SCENES with the kernel (4 launches) against
+the same encode on PyTorch's path, one graph replay against the eager
+call, the time of one encode's 4 launches (graph replays) by map size
+beside their bound (2.14 GB at 256 scenes), the plain version and
+PyTorch's path; then its launches a step on the TransFuser, autopilot,
+DIM, RIP and CIL paths and a training update (4 on the TransFuser path,
+0 elsewhere), and it prints the kernel's JSON line.
+
 ``--probe-rounds N`` builds the kernel, then runs only phases 10 and 11
 above (the evaluator's check, the route check and the CARNOVEL runs) N
 times, each round on towns built anew, and stops without the last line.
@@ -306,6 +325,14 @@ DIM_PLAN_FROZEN_FLOP = 7.7e9
 GROUP_NORM_PER_FORWARD = 52
 DEPTHWISE_PER_FORWARD = 17
 ENCODER_COUNT_STEPS = 6
+# TransFuser's fusion upsample-and-add kernel: the four fusions' (channels,
+# scale) at the model's 256 x 256 input (trunk maps 8 x scale pixels a
+# side), other scales the kernel takes (channels, scale), the scenes of the
+# TransFuser cell, and the steps that count the kernel's launches a step.
+FUSIONS = ((64, 8), (128, 4), (256, 2), (512, 1))
+FUSION_OTHER_SCALES = ((48, 3), (24, 5), (16, 6), (8, 12), (4, 16))
+FUSION_SCENES = 256
+FUSION_COUNT_STEPS = 4
 
 # The evaluator on the card against the CPU: two CoRL2017 Town02 tasks,
 # 2 episodes each; the autopilot's and RIP's horizons and distance limits
@@ -770,7 +797,8 @@ def drive_dim_path() -> dict:
             int(s["episodes"].sum()), int(s["collisions"].sum())))
   want = {"bev_splat": DIM_STEPS, "dim_plan": DIM_STEPS,
           "group_norm": GROUP_NORM_PER_FORWARD * DIM_STEPS,
-          "depthwise_conv": DEPTHWISE_PER_FORWARD * DIM_STEPS}
+          "depthwise_conv": DEPTHWISE_PER_FORWARD * DIM_STEPS,
+          "fusion_upsample": 0}
   if launches != want:
     fail("the kernels launched {} times in {} DIM steps, not {}".format(
         launches, DIM_STEPS, want))
@@ -1320,6 +1348,207 @@ def check_depthwise() -> dict:
           "library_ms": library_ms, "ms_by_map": split,
           "shapes_equal": verdicts, "forward_equal": forward_equal,
           "replay_equal": replay_equal}
+
+
+def fusion_case(batch: int, channels: int, scale: int, seed: int) -> tuple:
+  """(trunks, anchors) on the card for one fusion: both trunks' maps (8 x
+  scale pixels a side) and the GPT's two 8 x 8 maps, with per-channel
+  spreads."""
+  import torch  # pylint: disable=import-outside-toplevel
+  g = torch.Generator(device="cuda").manual_seed(seed)
+
+  def draw(side):
+    spread = 0.1 + 3 * torch.rand(1, channels, 1, 1, generator=g,
+                                  device="cuda")
+    return torch.randn(batch, channels, side, side, generator=g,
+                       device="cuda") * spread
+
+  return (draw(8 * scale), draw(8 * scale)), (draw(8), draw(8))
+
+
+def fusion_library(trunks, anchors, scale: int) -> tuple:
+  """PyTorch's fusion on both trunks: the program's path before the kernel
+  (and its path off the card)."""
+  import torch.nn.functional as F  # pylint: disable=import-outside-toplevel
+  return tuple(t + F.interpolate(a, scale_factor=scale, mode="bilinear",
+                                 align_corners=False)
+               for t, a in zip(trunks, anchors))
+
+
+def fusion_bytes(batch: int, fusions) -> int:
+  """Bytes the kernel must move for ``fusions`` at ``batch``: both trunks
+  read once, both anchor maps read once, both sums written once."""
+  return sum(4 * 2 * batch * c * (2 * (8 * s)**2 + 64) for c, s in fusions)
+
+
+def check_fusion_upsample() -> dict:
+  """TransFuser's fusion upsample-and-add kernel against PyTorch on the
+  card: at each of the four fusions' shapes at FUSION_SCENES scenes and at
+  1 (and the other scales of FUSION_OTHER_SCALES at 16), both trunks'
+  sums bit for bit against PyTorch's ``trunk + F.interpolate(...)`` and
+  against the plain version; a whole TransFuser encode at FUSION_SCENES
+  with the kernel against the same encode on PyTorch's path; one graph
+  replay against the eager call; then the time of one encode's 4 launches
+  (CUDA events around 20 back-to-back replays of a graph of them, median
+  of 21), split by map size, beside their bound, the plain version and
+  PyTorch's path.  Returns its line of the kernels JSON."""
+  import torch  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.models.transfuser import TransFuser  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import fusion_upsample_cuda as fu  # pylint: disable=import-outside-toplevel
+  verdicts = {}
+  for batch, fusions in ((FUSION_SCENES, FUSIONS), (1, FUSIONS),
+                         (16, FUSION_OTHER_SCALES)):
+    apart = []
+    for i, (c, s) in enumerate(fusions):
+      trunks, anchors = fusion_case(batch, c, s, 1000 * batch + i)
+      got = fu.upsample_add(trunks, anchors, s)
+      want = fusion_library(trunks, anchors, s)
+      plain = tuple(fu.upsample_add_reference(t, a, s)
+                    for t, a in zip(trunks, anchors))
+      torch.cuda.synchronize()
+      for side, (y, w, p) in enumerate(zip(got, want, plain)):
+        differ = (int((y != w).sum()), int((y != p).sum()))
+        if any(differ):
+          apart.append("C={} scale {} trunk {}: {} differ from PyTorch's "
+                       "(max {}), {} from the plain version".format(
+                           c, s, side, differ[0],
+                           float((y - w).abs().max()), differ[1]))
+      del trunks, anchors, got, want, plain
+    key = "B={} scales {}".format(batch, "/".join(str(s) for _, s in fusions))
+    verdicts[key] = 2 * len(fusions) - len(apart)
+    print("check fusion upsample {}: both trunks' sums equal to PyTorch's "
+          "(trunk + F.interpolate) and to the plain version bit for bit at "
+          "{} of {}{}".format(key, verdicts[key], 2 * len(fusions),
+                              "; " + "; ".join(apart) if apart else ""))
+  # A whole encode, the kernel against PyTorch's path.
+  g = torch.Generator(device="cuda").manual_seed(11)
+  model = TransFuser(device="cuda").eval().requires_grad_(False)
+  image = torch.randn(FUSION_SCENES, 3, 256, 256, generator=g, device="cuda")
+  lidar = torch.rand(FUSION_SCENES, 2, 256, 256, generator=g, device="cuda")
+  speed = 8 * torch.rand(FUSION_SCENES, generator=g, device="cuda")
+  engages = fu.engages
+  before = fu.KERNEL.launches
+  try:
+    with torch.no_grad():
+      z = model.encode(image, lidar, speed)
+      launched = fu.KERNEL.launches - before
+      fu.engages = lambda x: False
+      z_plain = model.encode(image, lidar, speed)
+  finally:
+    fu.engages = engages
+  torch.cuda.synchronize()
+  forward_equal = torch.equal(z, z_plain)
+  z_max = float(z.abs().max())
+  # One launch captured in a CUDA graph, replayed on new inputs.
+  c, s = FUSIONS[1]
+  trunks, anchors = fusion_case(64, c, s, 100)
+  fu.upsample_add(trunks, anchors, s)
+  torch.cuda.synchronize()
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    captured = fu.upsample_add(trunks, anchors, s)
+  fresh = fusion_case(64, c, s, 101)
+  for static, new in zip(trunks + anchors, fresh[0] + fresh[1]):
+    static.copy_(new)
+  graph.replay()
+  eager = fu.upsample_add(*fresh, s)
+  torch.cuda.synchronize()
+  replay_equal = all(torch.equal(a, b) for a, b in zip(captured, eager))
+  del graph, model, image, lidar, z, z_plain, trunks, anchors, fresh
+  print("check fusion upsample: TransFuser encode at B={} through the kernel "
+        "({} launches) equal to PyTorch's path bit for bit {} (|z| max "
+        "{:.4g}); graph replay equal to the eager call {}".format(
+            FUSION_SCENES, launched, forward_equal, z_max, replay_equal))
+  if (sum(verdicts.values()) != 4 * len(FUSIONS) + 2 * len(
+      FUSION_OTHER_SCALES) or not forward_equal or not replay_equal or
+      launched != len(FUSIONS)):
+    fail("the fusion upsample kernel disagrees with PyTorch's "
+         "F.interpolate and add")
+
+  cases = [(fusion_case(FUSION_SCENES, c, s, 200 + i), s)
+           for i, (c, s) in enumerate(FUSIONS)]
+
+  def kernel_pass(sub=cases):
+    for (trunks, anchors), s in sub:
+      fu.upsample_add(trunks, anchors, s)
+
+  def plain_pass():
+    for (trunks, anchors), s in cases:
+      for t, a in zip(trunks, anchors):
+        fu.upsample_add_reference(t, a, s)
+
+  def library_pass():
+    for (trunks, anchors), s in cases:
+      fusion_library(trunks, anchors, s)
+
+  before = fu.KERNEL.launches
+  ms = cuda_ms(replay_of(kernel_pass), calls=20)
+  eager_ms = cuda_ms(kernel_pass, calls=20)
+  library_ms = cuda_ms(replay_of(library_pass), calls=2, reps=5)
+  plain_ms = cuda_ms(plain_pass, calls=1, reps=3)
+  split, split_bound = {}, {}
+  for case, fusion in zip(cases, FUSIONS):
+    size = "{0}x{0}".format(8 * fusion[1])
+    split[size] = cuda_ms(replay_of(lambda sub=[case]: kernel_pass(sub)),
+                          calls=20)
+    split_bound[size] = (1e3 * fusion_bytes(FUSION_SCENES, [fusion]) /
+                         PEAK_BYTES_PER_S)
+  fu.KERNEL.launches = before
+  nbytes = fusion_bytes(FUSION_SCENES, FUSIONS)
+  bound_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+  print("timing fusion upsample B={} (TransFuser's {} fusions, both trunks, "
+        "one encode, graph replays): kernel {:.4f} ms (eager calls {:.4f}; "
+        "by trunk map {}), plain version {:.4f} ms, PyTorch's F.interpolate "
+        "+ add {:.4f} ms; bound {:.4f} ms ({:.3f} GB at 3.35 TB/s); {:.1f}% "
+        "of its bound".format(
+            FUSION_SCENES, len(FUSIONS), ms, eager_ms, ", ".join(
+                "{} {:.4f} ms ({:.0f}% of {:.4f})".format(
+                    k, v, 100 * split_bound[k] / v, split_bound[k])
+                for k, v in split.items()),
+            plain_ms, library_ms, bound_ms, nbytes / 1e9,
+            100 * bound_ms / ms))
+  return {"name": "fusion_upsample",
+          "status": "new (replaces no Pallas kernel)", "route": "cuda",
+          "source": "oatomobile_torch/csrc/fusion_upsample.cu",
+          "replaces": None, "ms": ms, "eager_ms": eager_ms,
+          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+          "library_ms": library_ms, "ms_by_map": split,
+          "shapes_equal": verdicts, "forward_equal": forward_equal,
+          "replay_equal": replay_equal}
+
+
+def fusion_launch_counts(dim_launches: int) -> dict:
+  """The fusion kernel's launches a step: the TransFuser policy's captured
+  step (FUSION_SCENES Town01 scenes, FUSION_COUNT_STEPS steps after a
+  warm-up that captures the step; default weights) and the autopilot's
+  with the LIDAR (BATCH scenes), each counted from 0, then the DIM, RIP,
+  CIL and training paths (``encoder_launch_counts``, none); fails where
+  they are not 4 and 0."""
+  import torch  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.baselines.learned.transfuser import make_transfuser_policy  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.envs.batched import BatchedEnv  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.models.transfuser import TransFuser  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import fusion_upsample_cuda as fu  # pylint: disable=import-outside-toplevel
+  counts = {}
+  for name, scenes, kwargs in (
+      ("transfuser_step", FUSION_SCENES,
+       dict(policy=make_transfuser_policy(TransFuser(device="cuda")))),
+      ("autopilot_step", BATCH, dict(compute=("lidar",)))):
+    env = BatchedEnv(TOWN, scenes, num_vehicles=VEHICLES,
+                     route_capacity=1024, seed=0, device="cuda")
+    env.rollout(2, **kwargs)
+    fu.KERNEL.launches = 0
+    _, _, s = env.rollout(FUSION_COUNT_STEPS, **kwargs)
+    float(s["distance"].sum())
+    counts[name] = fu.KERNEL.launches / FUSION_COUNT_STEPS
+    del env, kwargs
+  torch.cuda.synchronize()
+  want = {"transfuser_step": len(FUSIONS), "autopilot_step": 0}
+  print("{} launches: {} (want {})".format(fu.KERNEL.name, counts, want))
+  if counts != want:
+    fail("the fusion upsample kernel launched {} times, not {}".format(
+        counts, want))
+  return dict(counts, **encoder_launch_counts(fu.KERNEL, 0, dim_launches))
 
 
 def encoder_launch_counts(kernel, per_forward: int,
@@ -3371,6 +3600,11 @@ def main() -> None:
                       help="run only the encoder's depthwise kernel's check "
                       "and timing and its launches on the DIM, RIP, CIL and "
                       "training paths, and stop")
+  parser.add_argument("--fusion-upsample", action="store_true",
+                      help="run only TransFuser's fusion upsample-and-add "
+                      "kernel's check and timing and its launches on the "
+                      "TransFuser, autopilot, DIM, RIP, CIL and training "
+                      "paths, and stop")
   args = parser.parse_args()
   try:
     import torch  # pylint: disable=import-outside-toplevel
@@ -3384,7 +3618,7 @@ def main() -> None:
     from oatomobile_torch.envs.batched import BatchedEnv  # pylint: disable=import-outside-toplevel
     from oatomobile_torch.native import nvcc  # pylint: disable=import-outside-toplevel
     # Each kernel's wrapper makes its Kernel, built below in this order.
-    from oatomobile_torch.ops import bev, bev_cuda, depthwise_cuda, dim_plan_cuda, group_norm_cuda  # pylint: disable=import-outside-toplevel,unused-import
+    from oatomobile_torch.ops import bev, bev_cuda, depthwise_cuda, dim_plan_cuda, fusion_upsample_cuda, group_norm_cuda  # pylint: disable=import-outside-toplevel,unused-import
   except ImportError as exc:
     fail("oatomobile_torch not found next to this script ({})".format(exc))
   if "jax" in sys.modules or "oatomobile_tpu" in sys.modules:
@@ -3440,6 +3674,13 @@ def main() -> None:
     kernel["launches"] = encoder_launch_counts(
         depthwise_cuda.KERNEL, DEPTHWISE_PER_FORWARD,
         drive_dim_path()["depthwise_conv"])
+    print("total: {:.1f}s".format(time.perf_counter() - t_start))
+    print(json.dumps({"kernels": [kernel]}))
+    return
+  if args.fusion_upsample:
+    kernel = check_fusion_upsample()
+    kernel["launches"] = fusion_launch_counts(
+        drive_dim_path()["fusion_upsample"])
     print("total: {:.1f}s".format(time.perf_counter() - t_start))
     print(json.dumps({"kernels": [kernel]}))
     return
@@ -3608,6 +3849,12 @@ def main() -> None:
       dim_launches["depthwise_conv"])
   lap("depthwise kernel")
 
+  # -- 8e. TransFuser's fusion upsample-and-add kernel against PyTorch ----------
+  fusion_kernel = check_fusion_upsample()
+  fusion_kernel["launches"] = fusion_launch_counts(
+      dim_launches["fusion_upsample"])
+  lap("fusion upsample kernel")
+
   # -- 8b. The DIM entry, card against CPU and captured against eager ---------
   check_entry()
   lap("entry")
@@ -3705,7 +3952,8 @@ def main() -> None:
       "fill_ms": fill_ms,
   }, dict(dim_plan_kernel, launches_dim=dim_launches["dim_plan"],
           launches_captured_agents=plan_launches_agents,
-          launches_eval_rip=0), group_norm_kernel, depthwise_kernel]
+          launches_eval_rip=0), group_norm_kernel, depthwise_kernel,
+             fusion_kernel]
   print("phase seconds: {}".format(", ".join(
       "{} {:.1f}".format(phase, end - start)
       for (_, start), (phase, end) in zip(marks, marks[1:]))))

@@ -29,6 +29,13 @@ k^T`` times ``1 / sqrt(d_head)``, softmax, ``@ v``), not a fused
 attention kernel.  Module and parameter names are the source's, so a
 checkpoint of the source loads.
 
+A fusion's upsampling and add of both trunks is one launch of a
+hand-written CUDA kernel (``ops/fusion_upsample_cuda``, bit for bit
+PyTorch's ``F.interpolate`` and ``+`` on CUDA) where
+``fusion_upsample_cuda.engages``: float32 CUDA maps with autograd off, as
+in the policy's closed loop; elsewhere (the CPU, autograd, other dtypes)
+PyTorch's operations.
+
 The encoder marks each stage's trunks as the span ``transfuser.trunk``
 (``count``: the BasicBlocks run) and each fusion (pooling, GPT,
 upsampling, add) as ``transfuser.fuse`` (``count``: the GPT's blocks) on
@@ -43,6 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from oatomobile_torch.models import resnet
+from oatomobile_torch.ops import fusion_upsample_cuda
 from oatomobile_torch.utils import profiling
 
 # The sizes of the source's ``transfuser/config.py``.
@@ -195,12 +203,17 @@ class Encoder(nn.Module):
         lidar_embd = self.avgpool(lidar_features)
         image_embd, lidar_embd = transformer(image_embd, lidar_embd,
                                              velocity)
-        image_embd = F.interpolate(image_embd, scale_factor=scale,
-                                   mode="bilinear", align_corners=False)
-        lidar_embd = F.interpolate(lidar_embd, scale_factor=scale,
-                                   mode="bilinear", align_corners=False)
-        image_features = image_features + image_embd
-        lidar_features = lidar_features + lidar_embd
+        if fusion_upsample_cuda.engages(image_features):
+          image_features, lidar_features = fusion_upsample_cuda.upsample_add(
+              (image_features, lidar_features), (image_embd, lidar_embd),
+              scale)
+        else:
+          image_embd = F.interpolate(image_embd, scale_factor=scale,
+                                     mode="bilinear", align_corners=False)
+          lidar_embd = F.interpolate(lidar_embd, scale_factor=scale,
+                                     mode="bilinear", align_corners=False)
+          image_features = image_features + image_embd
+          lidar_features = lidar_features + lidar_embd
     image_features = torch.flatten(F.adaptive_avg_pool2d(image_features, 1),
                                    1).view(image.shape[0], 1, -1)
     lidar_features = torch.flatten(F.adaptive_avg_pool2d(lidar_features, 1),

@@ -121,3 +121,22 @@ def check_contiguous(named) -> None:
   for name, x in named:
     if not x.is_contiguous():
       raise ValueError("{} must be contiguous".format(name))
+
+
+def fmaf(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+  """a * b + c of float32 tensors rounded once to float32, as CUDA's fmaf
+  (the plain versions of kernels that repeat a fused multiply-add): the
+  product is exact in float64, the sum's error exact by two-sum, and the
+  error breaks the tie where the float64 sum falls on a midpoint of two
+  float32 neighbours."""
+  a, b, c = a.double(), b.double(), c.double()
+  p = a * b
+  s = p + c
+  bb = s - p
+  err = (p - (s - bb)) + (c - bb)
+  r = s.float()
+  inf = torch.full_like(r, float("inf"))
+  lo = torch.where(r.double() <= s, r, torch.nextafter(r, -inf))
+  hi = torch.nextafter(lo, inf)
+  tie = (s == (lo.double() + hi.double()) / 2) & (err != 0)
+  return torch.where(tie, torch.where(err > 0, hi, lo), r)

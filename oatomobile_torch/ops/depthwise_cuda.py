@@ -110,24 +110,6 @@ def _check(x: torch.Tensor, weight: torch.Tensor, stride: int,
     nvcc.check_contiguous(((name, t),))
 
 
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-  """a * b + c of float32 tensors rounded once to float32, as a fused
-  multiply-add: the product is exact in float64, the sum's error exact by
-  two-sum, and the error breaks the tie where the float64 sum falls on a
-  midpoint of two float32 neighbours."""
-  a, b, c = a.double(), b.double(), c.double()
-  p = a * b
-  s = p + c
-  bb = s - p
-  err = (p - (s - bb)) + (c - bb)
-  r = s.float()
-  inf = torch.full_like(r, float("inf"))
-  lo = torch.where(r.double() <= s, r, torch.nextafter(r, -inf))
-  hi = torch.nextafter(lo, inf)
-  tie = (s == (lo.double() + hi.double()) / 2) & (err != 0)
-  return torch.where(tie, torch.where(err > 0, hi, lo), r)
-
-
 def depthwise_reference(x: torch.Tensor, weight: torch.Tensor, stride: int,
                         padding: Padding) -> torch.Tensor:
   """The kernel's function in tensor operations, in ATen's order: each
@@ -148,8 +130,9 @@ def depthwise_reference(x: torch.Tensor, weight: torch.Tensor, stride: int,
       inside = row_in[:, None] & ((cols + kw >= 0) & (cols + kw < w))[None]
       tap = xp[:, :, kh:kh + (ho - 1) * stride + 1:stride,
                kw:kw + (wo - 1) * stride + 1:stride]
-      acc = torch.where(inside, _fma(weight[:, :, kh, kw].view(1, c, 1, 1),
-                                     tap, acc), acc)
+      acc = torch.where(inside,
+                        nvcc.fmaf(weight[:, :, kh, kw].view(1, c, 1, 1), tap,
+                                  acc), acc)
   return acc
 
 

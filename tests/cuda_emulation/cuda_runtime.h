@@ -32,6 +32,9 @@
 
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
 struct dim3_ { int x, y, z; };
 
 inline thread_local dim3_ threadIdx{0, 0, 0};
@@ -79,6 +82,9 @@ inline float __shfl_down_sync(unsigned, float v, int delta) {
   const int lane = threadIdx.x & 31;
   return cuda_emulation::shuffle(v, lane + delta < 32 ? lane + delta : lane);
 }
+// Cache hints (streaming loads and stores) are plain accesses here.
+inline float4 __ldcs(const float4* p) { return *p; }
+inline void __stcs(float4* p, float4 v) { *p = v; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }

@@ -552,3 +552,90 @@ def test_depthwise_kernel_refuses_what_it_does_not_take(card):
       x.data_ptr(), w.data_ptr(), y.data_ptr(), 32, 16, 5, 5, 5, 5, 1, 3, 1,
       torch.cuda.current_stream().cuda_stream)
   assert err != 0
+
+
+# -- TransFuser's fusion upsample-and-add kernel -------------------------------
+
+
+@pytest.mark.parametrize("batch", [256, 1])
+def test_fusion_upsample_kernel_equals_pytorch_at_every_fusion_shape(
+    card, batch):
+  """Each of the four fusions' shapes (C = 64, 128, 256, 512 at 64, 32,
+  16, 8 pixels), both trunks: the kernel's sums equal to PyTorch's ``trunk
+  + F.interpolate(anchors, scale_factor=scale, mode="bilinear",
+  align_corners=False)`` bit for bit.  The shapes and inputs are
+  chip_smoke.py's."""
+  import chip_smoke  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import fusion_upsample_cuda as fu  # pylint: disable=import-outside-toplevel
+  apart = []
+  for i, (c, s) in enumerate(chip_smoke.FUSIONS):
+    trunks, anchors = chip_smoke.fusion_case(batch, c, s, i)
+    got = fu.upsample_add(trunks, anchors, s)
+    want = chip_smoke.fusion_library(trunks, anchors, s)
+    apart += [(c, s, side) for side in (0, 1)
+              if not torch.equal(got[side], want[side])]
+  assert not apart
+
+
+def test_transfuser_encode_launches_the_fusion_kernel_four_times(card):
+  """One TransFuser encode under no_grad: 4 launches, z equal to the same
+  encode on PyTorch's path bit for bit; with autograd on, none."""
+  from oatomobile_torch.models.transfuser import TransFuser  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import fusion_upsample_cuda as fu  # pylint: disable=import-outside-toplevel
+  g = torch.Generator(device=card).manual_seed(3)
+  model = TransFuser(device=card).eval().requires_grad_(False)
+  inputs = (torch.randn(8, 3, 256, 256, generator=g, device=card),
+            torch.rand(8, 2, 256, 256, generator=g, device=card),
+            8 * torch.rand(8, generator=g, device=card))
+  before = fu.KERNEL.launches
+  with torch.no_grad():
+    got = model.encode(*inputs)
+  assert fu.KERNEL.launches == before + 4
+  with pytest.MonkeyPatch.context() as mp, torch.no_grad():
+    mp.setattr(fu, "engages", lambda x: False)
+    want = model.encode(*inputs)
+  assert torch.equal(got, want)
+  model.encode(*inputs)  # autograd on: PyTorch's path
+  assert fu.KERNEL.launches == before + 4
+
+
+def test_fusion_upsample_graph_replay_matches_eager_call(card):
+  import chip_smoke  # pylint: disable=import-outside-toplevel
+  from oatomobile_torch.ops import fusion_upsample_cuda as fu  # pylint: disable=import-outside-toplevel
+  trunks, anchors = chip_smoke.fusion_case(16, 128, 4, 1)
+  fu.upsample_add(trunks, anchors, 4)
+  torch.cuda.synchronize()
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    captured = fu.upsample_add(trunks, anchors, 4)
+  fresh = chip_smoke.fusion_case(16, 128, 4, 2)
+  for static, new in zip(trunks + anchors, fresh[0] + fresh[1]):
+    static.copy_(new)
+  graph.replay()
+  eager = fu.upsample_add(*fresh, 4)
+  torch.cuda.synchronize()
+  assert all(torch.equal(a, b) for a, b in zip(captured, eager))
+
+
+def test_fusion_upsample_kernel_refuses_what_it_does_not_take(card):
+  from oatomobile_torch.ops import fusion_upsample_cuda as fu  # pylint: disable=import-outside-toplevel
+  trunks = tuple(torch.randn(2, 16, 16, 16, device=card) for _ in range(2))
+  anchors = tuple(torch.randn(2, 16, 8, 8, device=card) for _ in range(2))
+  before = fu.KERNEL.launches
+  with pytest.raises(TypeError):
+    fu.upsample_add((trunks[0].double(), trunks[1]), anchors, 2)
+  with pytest.raises(ValueError):
+    fu.upsample_add(trunks, (anchors[0].cpu(), anchors[1]), 2)
+  with pytest.raises(ValueError):
+    fu.upsample_add(trunks, anchors, 4)
+  misaligned = torch.randn(2 * 16 * 16 * 16 + 1, device=card)[1:].view(
+      2, 16, 16, 16)
+  with pytest.raises(ValueError, match="aligned"):
+    fu.upsample_add((misaligned, trunks[1]), anchors, 2)
+  assert fu.KERNEL.launches == before
+  # The entry point refuses a scale past 128.
+  err = fu.KERNEL.library().fusion_upsample_launch(
+      trunks[0].data_ptr(), anchors[0].data_ptr(), trunks[0].data_ptr(),
+      trunks[1].data_ptr(), anchors[1].data_ptr(), trunks[1].data_ptr(),
+      32, 129, torch.cuda.current_stream().cuda_stream)
+  assert err != 0

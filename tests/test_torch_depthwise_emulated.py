@@ -21,6 +21,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from oatomobile_torch.native import nvcc
 from oatomobile_torch.ops import depthwise_cuda
 from torch_port_helpers import emulated_library
 
@@ -138,8 +139,8 @@ def test_plain_version_rounds_each_multiply_add_once():
   a = np.concatenate([a, [one_up, -one_up, one_up]]).astype(np.float32)
   b = np.concatenate([b, [np.float32(2.0**-24 * (1 - 2.0**-23))] * 3])
   c = np.concatenate([c, [one_up, -one_up, np.float32(-1 - 2.0**-22)]])
-  got = depthwise_cuda._fma(*(torch.from_numpy(v.astype(np.float32))  # pylint: disable=protected-access
-                              for v in (a, b, c))).numpy()
+  got = nvcc.fmaf(*(torch.from_numpy(v.astype(np.float32))
+                    for v in (a, b, c))).numpy()
   want = np.array([exact_fma(float(x), float(y), float(z))
                    for x, y, z in zip(a, b, c)], np.float32)
   np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))

@@ -24,6 +24,8 @@ COMMANDS = {
     "bev_cuda": ("bev_splat", ARCH + TAIL + ("-I", nvcc.CSRC)),
     "depthwise_cuda": ("depthwise_conv", ARCH + ("-fmad=false",) + TAIL),
     "dim_plan_cuda": ("dim_plan", ARCH + ("-fmad=false",) + TAIL),
+    "fusion_upsample_cuda": ("fusion_upsample",
+                             ARCH + ("-fmad=false",) + TAIL),
     "group_norm_cuda": ("group_norm", ARCH + ("-fmad=false",) + TAIL),
 }
 
